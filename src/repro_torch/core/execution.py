@@ -1,0 +1,47 @@
+"""Execution device: which compute path the deployed executors and codecs run.
+
+The JAX package threads an ``ExecutionKnob(use_pallas, interpret)`` from the
+spec down to the kernels.  Here the knob is the tensor's device:
+
+- a CUDA tensor always goes to the hand-written kernel (there is no
+  fallback: a shape the kernel cannot take raises);
+- a CPU tensor always goes to the kernel's plain PyTorch version;
+- any other device raises.
+
+``resolve_device`` is what the entry points call on the caller's device
+argument (default ``"cuda"``).  It also turns TF32 off for float32 matrix
+products and convolutions: the JAX reference computes in full f32, and the
+tolerances the port is held to (1e-5 on the fused dequant-matmul, 2e-5 on
+flash attention) are f32 tolerances that TF32's ~1e-3 would break.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """Validate an entry point's device and pin f32 products to full f32."""
+    dev = torch.device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"device must be cpu or cuda, got {dev}")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' asked for, but no CUDA device is "
+                               "available; pass device='cpu' to run the plain path")
+        if dev.index is None:  # name the card, so device comparisons hold
+            dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def on_kernel_path(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on CUDA (run the kernel), False when every
+    tensor lies on the CPU (run the plain version); raises otherwise."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"tensors must all lie on cpu or all on cuda, got {sorted(kinds)}")

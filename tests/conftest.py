@@ -13,3 +13,8 @@ _ROOT = Path(__file__).resolve().parent.parent
 for p in (str(_ROOT / "src"), str(_ROOT / "tests"), str(_ROOT)):
     if p not in sys.path:
         sys.path.insert(0, p)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skipped where there is none")
