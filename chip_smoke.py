@@ -12,10 +12,14 @@ the first fault:
    (one ``nvcc`` per source, in parallel) and prints each kernel's
    registers, shared memory and spills.
 3. parity  -- each kernel against its plain PyTorch version on the card, at
-   the shapes the served path gives it: quantize codes and scales equal,
-   dequantize exact, dequant_matmul within 1e-5 of max|plain|, flash
+   the shapes the served path gives it: quantize codes and scales equal and
+   dequantize exact at demo_ssm's and demo_transformer's hop payloads
+   (dequantize also at demo_mlp's), dequant_matmul within 1e-5 of max|plain|, flash
    attention within 2e-5 max-abs (f32) for the global and windowed,
-   soft-capped layers and a plain causal one.
+   soft-capped layers and a plain causal one; the SSD scan within 1e-5 of
+   max|plain| (the plain version chunked as the kernel chunks, at 64) at
+   the served shape, on demo_ssm's layer-0 activations, ragged (S=96) and
+   at S=8.
 4. serve demo_transformer at gemma2-27b attention width (d=4096, 32 heads,
    16 kv heads, hd=128, MLP 8x, softcap 50, window 4096, S=8192, 4 layers)
    through ``deploy`` with int8 hops: 4 requests, a ``NodeFailed`` on a
@@ -23,19 +27,30 @@ the first fault:
    completed once; the quantize, dequant_matmul and flash kernels launched.
 5. serve demo_mlp(d=4096) with int8 hops: the hop decode runs the
    dequantize kernel.
-6. reference -- a small demo_transformer deployed on the card and on the
-   CPU (the plain versions, which the CPU tests hold to the JAX package)
-   with the same weights: outputs within INT8_MAX_REL_ERROR of max|ref|.
-7. times  -- each kernel (CUDA events, after warm-up, mean over launches)
+6. serve demo_ssm at zamba2-2.7b's Mamba2 mixer width (d = d_inner = 5120,
+   80 heads of 64, N=64, S=8192, 6 layers) the same way as phase 4: the
+   SSD scan, quantize and dequantize kernels launched.
+7. serve two tenants on one cluster, ``deploy([TenantSpec("ssm", ...),
+   TenantSpec("transformer", ...)])`` (phase 6's demo_ssm, and phase 4's
+   demo_transformer cut to 2 layers), int8 hops in both; a ``NodeFailed``
+   on a node only the ssm tenant owns leaves the transformer's plan as it
+   was; every request of both completes once.
+8. reference -- a small demo_transformer and a small demo_ssm deployed on
+   the card and on the CPU (the plain versions, which the CPU tests hold to
+   the JAX package) with the same weights: outputs within
+   INT8_MAX_REL_ERROR of max|ref|.
+9. times  -- each kernel (CUDA events, after warm-up, mean over launches)
    beside its bound, its plain version's time and a library call's (none
-   computes these functions in one PyTorch call here).
+   computes these functions in one PyTorch call here). dequantize is timed
+   at demo_ssm's hop; the SSD scan's bound counts the fewest operations of
+   any chunking, and the kernel's own Q=64 count is printed beside it.
 
 The last two lines are a JSON object of the kernels and the device line.
 Weights and requests are random, drawn from fixed seeds.
 
 ``python3 chip_smoke.py --profile`` also serves one more demo_transformer
-microbatch under ``torch.profiler`` and prints the device time by kernel
-and the device's idle share over that serve.
+and one more demo_ssm microbatch under ``torch.profiler`` and prints the
+device time by kernel and the device's idle share over each serve.
 """
 
 from __future__ import annotations
@@ -61,6 +76,10 @@ TOL_DQMM = 1e-5
 SERVED = dict(d=4096, n_layers=4, seq=8192, heads=32, kv_heads=16, mlp_mult=8,
               window=4096, softcap=50.0, attn_block=128)
 MICROBATCH = 4
+# demo_ssm at zamba2-2.7b's Mamba2 mixer width (d_inner = 2 x 2560, headdim
+# 64, d_state 64); 6 layers, the JAX package's default depth
+SSM = dict(d=5120, n_layers=6, seq=8192, heads=80, state=64)
+TOL_SSD = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -171,15 +190,24 @@ def phase_parity() -> dict:
     proj = (heads + 2 * kvh) * hd
     err = {}
 
-    x = randn((n, s, d), 1)
-    q, sc = quantize_int8_cuda(x, 256)
-    q_ref, s_ref = quantize_ref(x, 256)
-    torch.cuda.synchronize()
-    if not (torch.equal(q, q_ref) and torch.equal(sc, s_ref)):
-        fail(f"quantize_int8: {(q != q_ref).sum().item()} codes and "
-             f"{(sc != s_ref).sum().item()} scales differ from the plain version")
+    # the hop payloads: demo_ssm's (decoded by dequantize_int8), then
+    # demo_transformer's (decoded inside dequant_matmul, below)
+    for shape, seed in (((n, SSM["seq"], SSM["d"]), 5), ((n, s, d), 1)):
+        x = randn(shape, seed)
+        q, sc = quantize_int8_cuda(x, 256)
+        q_ref, s_ref = quantize_ref(x, 256)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, q_ref) and torch.equal(sc, s_ref)):
+            fail(f"quantize_int8 {shape}: {(q != q_ref).sum().item()} codes and "
+                 f"{(sc != s_ref).sum().item()} scales differ from the plain version")
+        say("parity", f"quantize_int8 {shape} f32: codes and scales identical")
+        if shape[-1] == SSM["d"]:
+            out = dequantize_int8_cuda(q, sc, dtype=torch.float32, block=256)
+            if not torch.equal(out, dequantize_ref(q, sc, torch.float32, 256)):
+                fail(f"dequantize_int8 {shape}: not exact")
+            say("parity", f"dequantize_int8 {shape} -> f32: exact")
+            del out, x, q, sc, q_ref, s_ref
     err["quantize_int8"] = 0.0
-    say("parity", f"quantize_int8 {tuple(x.shape)} f32: codes and scales identical")
 
     qm, sm = quantize_ref(randn((n, d), 2), 256)  # demo_mlp's hop payload
     for shape_q, shape_s in ((qm, sm), (q[:1], sc[:1])):
@@ -224,6 +252,223 @@ def phase_parity() -> dict:
     del qkv, fq, fk, fv, o, ref, x, q, sc, q_ref, s_ref
     torch.cuda.empty_cache()
     return err
+
+
+def ssm_params(version: int, cfg: dict | None = None) -> dict:
+    """demo_ssm's weights (``SSM`` unless ``cfg``), N(0, 1) * 0.3 from a
+    numpy seed, as numpy."""
+    import numpy as np
+
+    c = cfg or SSM
+    L, d, n, h = c["n_layers"], c["d"], c["state"], c["heads"]
+    rng = np.random.default_rng(2000 + version)
+    return {k: rng.standard_normal(shp, dtype=np.float32) * 0.3 for k, shp in (
+        ("wb", (L, d, n)), ("wc", (L, d, n)), ("wd", (L, d, h)))}
+
+
+def ssd_case(b, s, h, dh, n, seed):
+    """Scan inputs scaled as the JAX package's kernel test scales them."""
+    import torch
+
+    return (randn((b, s, h, dh), seed, 0.5), randn((b, s, n), seed + 1, 0.5),
+            randn((b, s, n), seed + 2, 0.5),
+            torch.nn.functional.softplus(randn((b, s, h), seed + 3)),
+            -torch.exp(randn((h,), seed + 4, 0.3)))
+
+
+def ssm_layer0_inputs(seed: int):
+    """The scan's inputs in layer 0 of the served demo_ssm, on a microbatch
+    of requests as phase 6 draws them."""
+    import torch
+
+    d, seq, heads = SSM["d"], SSM["seq"], SSM["heads"]
+    w = {k: torch.as_tensor(v[0], device="cuda") for k, v in ssm_params(0).items()}
+    x = torch.stack([randn((seq, d), seed + i, 0.5) for i in range(MICROBATCH)])
+    xs = x.reshape(MICROBATCH, seq, heads, d // heads)
+    a = torch.full((heads,), -0.5, device="cuda")
+    return xs, x @ w["wb"], x @ w["wc"], torch.nn.functional.softplus(x @ w["wd"]), a
+
+
+def phase_parity_ssd() -> float:
+    """The SSD kernel vs its plain version; returns the worst max-abs."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan.kernel import KERNEL_CHUNK, ssd_chunked_cuda
+    from repro_torch.kernels.ssm_scan.ref import ssd_ref, ssd_ref_padded
+
+    h, dh, n = SSM["heads"], SSM["d"] // SSM["heads"], SSM["state"]
+    cases = (
+        ("served shape", ssd_case(MICROBATCH, SSM["seq"], h, dh, n, 20), SSM["seq"]),
+        ("demo_ssm layer-0 activations", ssm_layer0_inputs(600), SSM["seq"]),
+        ("ragged S=96", ssd_case(2, 96, h, dh, n, 30), 32),
+        ("S=8 (demo_ssm's default)", ssd_case(2, 8, 2, 12, 4, 40), 8),
+    )
+    worst = 0.0
+    for label, args, chunk in cases:
+        out = ssd_chunked_cuda(*args, chunk=chunk)
+        ref = ssd_ref_padded(*args, chunk=KERNEL_CHUNK)
+        torch.cuda.synchronize()
+        abs_err = (out - ref).abs().max().item()
+        rel = abs_err / ref.abs().max().item()
+        shape = tuple(args[0].shape) + (args[1].shape[-1],)
+        if not (rel <= TOL_SSD and bool(torch.isfinite(out).all())):
+            fail(f"ssd_chunked {label} {shape}: {rel:.3g} of max|plain| > {TOL_SSD}")
+        worst = max(worst, abs_err)
+        msg = (f"ssd_chunked {label} (B, S, H, dh, N)={shape} chunk={chunk}: max-abs "
+               f"{abs_err:.3g}, {rel:.3g} of max|plain| (pin {TOL_SSD})")
+        if label == "served shape":  # both against an f64 run of the same scan
+            exact = ssd_ref(*(t.double() for t in args), chunk=KERNEL_CHUNK)[0]
+            msg += (f"; vs f64: kernel {(out - exact).abs().max().item():.3g}, "
+                    f"plain {(ref - exact).abs().max().item():.3g}")
+            del exact
+        say("parity", msg)
+        del out, ref, args
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_served(reqs, shape, what: str) -> None:
+    import torch
+
+    for r in reqs:
+        res = r.result
+        if not (isinstance(res, torch.Tensor) and res.is_cuda and tuple(res.shape) == shape
+                and bool(torch.isfinite(res).all())):
+            fail(f"{what} request {r.req_id}: result is not a finite CUDA tensor of shape {shape}")
+
+
+def phase_serve_ssm() -> tuple[dict, dict]:
+    import torch
+
+    from repro_torch.api import ClusterSpec, DeploymentSpec, deploy
+    from repro_torch.cluster import NodeFailed
+    from repro_torch.core.model_zoo import demo_ssm
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    graph, ex = demo_ssm(**SSM, device="cuda", params_for_version=ssm_params)
+    d = deploy(DeploymentSpec(
+        model=graph, executor_for_version=ex,
+        cluster=ClusterSpec(n_nodes=6, capacity_bytes=graph.total_param_bytes / 2.5, seed=5),
+        codec="int8", seed=3, microbatch=MICROBATCH, device="cuda"))
+    if "int8" not in d.plan.codecs:
+        fail(f"planner put no int8 hop on demo_ssm's wire: {d.plan.codecs}")
+    say("serve", f"demo_ssm {SSM}: path {list(d.plan.path)}, codecs {list(d.plan.codecs)}, "
+                 f"{graph.total_param_bytes / 1e6:.1f} MB of f32 weights")
+    shape = (SSM["seq"], SSM["d"])
+    reset_launch_counts()
+    times, submitted = {}, []
+    for round_, (seed0, label) in enumerate(((700, "first"), (800, "after NodeFailed"))):
+        if round_ == 1:
+            victim = d.control.pipeline.pods[1].node_id
+            d.inject(NodeFailed(victim))
+            kinds = [a.kind for a in d.reconcile()]
+            say("serve", f"demo_ssm NodeFailed({victim}) -> {kinds}; path now {list(d.plan.path)}")
+            if victim in d.plan.path:
+                fail("the failed node still hosts a demo_ssm stage")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MICROBATCH):
+            submitted.append(d.submit(randn(shape, seed0 + i, 0.5)))
+        done = d.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        times[label] = wall / MICROBATCH
+        if len(done) != MICROBATCH:
+            fail(f"demo_ssm {label}: {len(done)} of {MICROBATCH} requests completed")
+        say("serve", f"demo_ssm {label}: {MICROBATCH} requests in {wall * 1e3:.1f} ms wall, "
+                     f"{wall / MICROBATCH * 1e3:.2f} ms per request")
+    counts = launch_counts()
+    ids = [r.req_id for r in d.loop.completed]
+    if sorted(ids) != sorted(r.req_id for r in submitted) or len(set(ids)) != len(ids):
+        fail(f"demo_ssm requests not completed exactly once: {ids}")
+    if d.loop.failed:
+        fail(f"demo_ssm: {len(d.loop.failed)} requests failed")
+    check_served(submitted, shape, "demo_ssm")
+    say("serve", f"demo_ssm: {len(ids)} of {len(submitted)} requests completed once, finite CUDA "
+                 f"tensors {shape}; launches {counts}")
+    for name in ("ssd_chunked_cuda", "quantize_int8_cuda", "dequantize_int8_cuda"):
+        if counts[name] == 0:
+            fail(f"{name} was never launched on demo_ssm's served path")
+    if "--profile" in sys.argv[1:]:
+        profile_serve(d, shape, "demo_ssm")
+    del d, submitted
+    torch.cuda.empty_cache()
+    return counts, times
+
+
+def phase_serve_tenants() -> dict:
+    """demo_ssm and a 2-layer demo_transformer as two tenants of one cluster."""
+    import torch
+
+    from repro_torch.api import ClusterSpec, DeploymentSpec, TenantSpec, deploy
+    from repro_torch.cluster import NodeFailed
+    from repro_torch.core.model_zoo import demo_ssm, demo_transformer
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    tf_cfg = {**SERVED, "n_layers": 2}
+    ssm_graph, ssm_ex = demo_ssm(**SSM, device="cuda", params_for_version=ssm_params)
+    tf_graph, tf_ex = demo_transformer(**tf_cfg, device="cuda")
+    # per tenant: ssm 2-3 layers per node, transformer one layer per node,
+    # so each pipeline has int8 hops between its stages
+    caps = {"ssm": ssm_graph.total_param_bytes / 2.5,
+            "transformer": tf_graph.total_param_bytes / 1.5}
+    cluster = ClusterSpec(n_nodes=8, capacity_bytes=max(caps.values()), seed=5)
+    md = deploy([TenantSpec(name, DeploymentSpec(
+        model=g, executor_for_version=ex, cluster=cluster, capacity=caps[name],
+        codec="int8", seed=3, microbatch=MICROBATCH, device="cuda"))
+        for name, g, ex in (("ssm", ssm_graph, ssm_ex), ("transformer", tf_graph, tf_ex))])
+    for name in md.names():
+        plan = md.deployment(name).plan
+        if "int8" not in plan.codecs:
+            fail(f"tenant {name}: no int8 hop on its wire: {plan.codecs}")
+        say("tenants", f"{name}: slice {list(md.nodes_for(name))}, path {list(plan.path)}, "
+                       f"codecs {list(plan.codecs)}")
+    shapes = {"ssm": (SSM["seq"], SSM["d"]), "transformer": (SERVED["seq"], SERVED["d"])}
+    reset_launch_counts()
+    submitted = {name: [] for name in shapes}
+    tf_path = list(md.deployment("transformer").plan.path)
+    for round_ in range(2):
+        if round_ == 1:
+            victim = md.deployment("ssm").control.pipeline.pods[1].node_id
+            if victim in md.nodes_for("transformer"):
+                fail(f"node {victim} is in the transformer tenant's slice")
+            md.inject(NodeFailed(victim))
+            acts = md.reconcile()
+            kinds = {n: [a.kind for a in a_] for n, a_ in acts.items()}
+            say("tenants", f"NodeFailed({victim}) -> routed {md.controlplane.routed}, "
+                           f"actions {kinds}")
+            if acts["transformer"] or list(md.deployment("transformer").plan.path) != tf_path:
+                fail("a NodeFailed in the ssm tenant's slice moved the transformer tenant")
+            if victim in md.deployment("ssm").plan.path:
+                fail("the failed node still hosts an ssm stage")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MICROBATCH):
+            for name, shape in shapes.items():
+                submitted[name].append(md.submit(name, randn(shape, 900 + 10 * round_ + i, 0.5)))
+        done = md.drain()
+        torch.cuda.synchronize()
+        if len(done) != 2 * MICROBATCH:
+            fail(f"tenants round {round_}: {len(done)} of {2 * MICROBATCH} requests completed")
+        say("tenants", f"round {round_}: {len(done)} requests in "
+                       f"{(time.perf_counter() - t0) * 1e3:.1f} ms wall")
+    for name, reqs in submitted.items():
+        ids = [r.req_id for r in md.completed(name)]
+        if sorted(ids) != sorted(r.req_id for r in reqs) or len(set(ids)) != len(ids):
+            fail(f"tenant {name}: requests not completed exactly once: {ids}")
+        if any(r.tenant != name for r in reqs):
+            fail(f"tenant {name}: a request came back stamped with another tenant")
+        check_served(reqs, shapes[name], f"tenant {name}")
+    counts = launch_counts()
+    say("tenants", f"every request of both tenants completed once as a finite CUDA tensor; "
+                   f"transformer plan path {tf_path} unchanged; launches {counts}")
+    for name in ("ssd_chunked_cuda", "dequant_matmul_cuda", "flash_attention_cuda",
+                 "quantize_int8_cuda", "dequantize_int8_cuda"):
+        if counts[name] == 0:
+            fail(f"{name} was never launched by the two tenants")
+    del md, submitted
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_serve_transformer() -> tuple[dict, dict]:
@@ -280,11 +525,7 @@ def phase_serve_transformer() -> tuple[dict, dict]:
         fail(f"requests not completed exactly once: {ids}")
     if d.loop.failed:
         fail(f"{len(d.loop.failed)} requests failed")
-    for r in submitted:
-        res = r.result
-        if not (isinstance(res, torch.Tensor) and res.is_cuda and tuple(res.shape) == shape
-                and bool(torch.isfinite(res).all())):
-            fail(f"request {r.req_id}: result is not a finite CUDA tensor of shape {shape}")
+    check_served(submitted, shape, "demo_transformer")
     say("serve", f"8 of 8 requests completed once, finite CUDA tensors {shape}; "
                  f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
                  f"launches {counts}")
@@ -292,13 +533,13 @@ def phase_serve_transformer() -> tuple[dict, dict]:
         if counts[name] == 0:
             fail(f"{name} was never launched on the served path")
     if "--profile" in sys.argv[1:]:
-        profile_serve(d, shape)
+        profile_serve(d, shape, "demo_transformer")
     del d, submitted
     torch.cuda.empty_cache()
     return counts, times
 
 
-def profile_serve(d, shape) -> None:
+def profile_serve(d, shape, what: str) -> None:
     """Serve one microbatch under torch.profiler: device time by kernel."""
     import torch
     from torch.autograd import DeviceType
@@ -316,8 +557,9 @@ def profile_serve(d, shape) -> None:
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
         fail("the profiler saw no device time")
-    say("profile", f"one microbatch of {MICROBATCH}: {wall_ms:.1f} ms wall, {busy_ms:.1f} ms "
-                   f"device busy, idle share {max(0.0, 1 - busy_ms / wall_ms):.1%}")
+    idle = max(0.0, 1 - busy_ms / wall_ms)
+    say("profile", f"{what}, one microbatch of {MICROBATCH}: {wall_ms:.1f} ms wall, "
+                   f"{busy_ms:.1f} ms device busy, idle share {idle:.1%}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         ms = e.self_device_time_total / 1e3
         say("profile", f"{ms:10.2f} ms {ms / busy_ms:6.1%} x{e.count:<4d} {e.key[:110]}")
@@ -353,14 +595,43 @@ def phase_serve_mlp() -> dict:
     return counts
 
 
-def phase_reference():
-    """A small demo_transformer on the card vs the same on the CPU."""
+def card_vs_cpu(name: str, ctor, cfg: dict, params, shape) -> None:
+    """One small model deployed with int8 hops on the card and on the CPU
+    (the plain versions, which the CPU tests hold to the JAX package), the
+    same weights and constant activations: within INT8_MAX_REL_ERROR."""
     import numpy as np
     import torch
 
     from repro_torch.api import ClusterSpec, DeploymentSpec, deploy
-    from repro_torch.core.model_zoo import demo_transformer
     from repro_torch.kernels.quantize import INT8_MAX_REL_ERROR
+
+    outs = {}
+    for device in ("cuda", "cpu"):
+        graph, ex = ctor(**cfg, device=device, params_for_version=params)
+        d = deploy(DeploymentSpec(
+            model=graph, executor_for_version=ex,
+            cluster=ClusterSpec(n_nodes=6, capacity_bytes=graph.total_param_bytes / 2.5, seed=5),
+            codec="int8", seed=3, device=device))
+        for i in range(3):  # constant activations: the kernel_path input family
+            d.submit(torch.full(shape, 0.1 * (i + 1)))
+        outs[device] = {r.req_id: r.result.float().cpu().numpy() for r in d.drain()}
+        codecs = list(d.plan.codecs)
+    if sorted(outs["cuda"]) != sorted(outs["cpu"]) or len(outs["cpu"]) != 3:
+        fail(f"small {name}: requests did not complete on both devices")
+    worst = 0.0
+    for rid, ref in outs["cpu"].items():
+        rel = float(np.abs(outs["cuda"][rid] - ref).max() / np.abs(ref).max())
+        worst = max(worst, rel)
+    if not worst <= INT8_MAX_REL_ERROR:
+        fail(f"small {name}: card vs CPU {worst:.3g} of max|ref| > {INT8_MAX_REL_ERROR:.3g}")
+    say("reference", f"{name} {cfg} codecs {codecs}: card vs CPU plain path "
+                     f"{worst:.3g} of max|ref| (pin {INT8_MAX_REL_ERROR:.3g})")
+
+
+def phase_reference():
+    import numpy as np
+
+    from repro_torch.core.model_zoo import demo_ssm, demo_transformer
 
     small = dict(d=256, n_layers=4, seq=256, heads=4, kv_heads=2, mlp_mult=2,
                  window=128, softcap=50.0)
@@ -374,25 +645,10 @@ def phase_reference():
         return {k: rng.standard_normal(shp, dtype=np.float32) * 0.3 for k, shp in (
             ("wqkv", (L, dm, proj)), ("wo", (L, dm, dm)), ("w1", (L, dm, f)), ("w2", (L, f, dm)))}
 
-    outs = {}
-    for device in ("cuda", "cpu"):
-        graph, ex = demo_transformer(**small, device=device, params_for_version=params)
-        d = deploy(DeploymentSpec(
-            model=graph, executor_for_version=ex,
-            cluster=ClusterSpec(n_nodes=6, capacity_bytes=graph.total_param_bytes / 2.5, seed=5),
-            codec="int8", seed=3, device=device))
-        for i in range(3):  # constant activations: the kernel_path input family
-            d.submit(torch.full((small["seq"], dm), 0.1 * (i + 1)))
-        outs[device] = {r.req_id: r.result.float().cpu().numpy() for r in d.drain()}
-        codecs = list(d.plan.codecs)
-    worst = 0.0
-    for rid, ref in outs["cpu"].items():
-        rel = float(np.abs(outs["cuda"][rid] - ref).max() / np.abs(ref).max())
-        worst = max(worst, rel)
-    if not worst <= INT8_MAX_REL_ERROR:
-        fail(f"small demo_transformer: card vs CPU {worst:.3g} of max|ref| > {INT8_MAX_REL_ERROR:.3g}")
-    say("reference", f"demo_transformer {small} codecs {codecs}: card vs CPU plain path "
-                     f"{worst:.3g} of max|ref| (pin {INT8_MAX_REL_ERROR:.3g})")
+    card_vs_cpu("demo_transformer", demo_transformer, small, params, (small["seq"], dm))
+    small_ssm = dict(d=256, n_layers=6, seq=256, heads=4, state=16)
+    card_vs_cpu("demo_ssm", demo_ssm, small_ssm, lambda v: ssm_params(v, small_ssm),
+                (small_ssm["seq"], small_ssm["d"]))
 
 
 def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
@@ -406,6 +662,8 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
         quantize_int8_cuda,
     )
     from repro_torch.kernels.quantize.ref import dequant_matmul_ref, dequantize_ref, quantize_ref
+    from repro_torch.kernels.ssm_scan.kernel import KERNEL_CHUNK, ssd_chunked_cuda
+    from repro_torch.kernels.ssm_scan.ref import ssd_ref
 
     d, s, n = SERVED["d"], SERVED["seq"], MICROBATCH
     heads, kvh = SERVED["heads"], SERVED["kv_heads"]
@@ -432,16 +690,18 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
         lambda: quantize_int8_cuda(x, 256), lambda: quantize_ref(x, 256), 50,
         x.numel() * 4 + x.numel() + sc.numel() * 4, 5 * x.numel(), tuple(x.shape))
 
-    qm, sm = quantize_int8_cuda(randn((n, d), 12), 256)  # demo_mlp's hop payload
+    qs, ss = quantize_int8_cuda(randn((n, SSM["seq"], SSM["d"]), 12), 256)  # demo_ssm's hop
     row("dequantize_int8", "src/repro_torch/kernels/csrc/quantize.cu",
         "src/repro/kernels/quantize/kernel.py:84",
-        lambda: dequantize_int8_cuda(qm, sm, torch.float32, 256),
-        lambda: dequantize_ref(qm, sm, torch.float32, 256), 200,
-        qm.numel() + sm.numel() * 4 + qm.numel() * 4, qm.numel(), tuple(qm.shape))
-    big = cuda_time_ms(lambda: dequantize_int8_cuda(q, sc, torch.float32, 256), 20)
-    b_ms, b_by = bound_ms(q.numel() * 5 + sc.numel() * 4, q.numel())
-    say("times", f"dequantize_int8 {tuple(q.shape)} (not on the served path): {big:.4f} ms, "
-                 f"bound {b_ms:.4f} ms ({b_by}); {card}")
+        lambda: dequantize_int8_cuda(qs, ss, torch.float32, 256),
+        lambda: dequantize_ref(qs, ss, torch.float32, 256), 50,
+        qs.numel() * 5 + ss.numel() * 4, qs.numel(), tuple(qs.shape))
+    del qs, ss
+    qm, sm = quantize_int8_cuda(randn((n, d), 12), 256)  # demo_mlp's hop payload
+    small = cuda_time_ms(lambda: dequantize_int8_cuda(qm, sm, torch.float32, 256), 200)
+    b_ms, b_by = bound_ms(qm.numel() * 5 + sm.numel() * 4, qm.numel())
+    say("times", f"dequantize_int8 {tuple(qm.shape)} (demo_mlp's hop): {small:.4f} ms, "
+                 f"bound {b_ms:.5f} ms ({b_by}); {card}")
 
     w = randn((d, proj), 13, 0.3)
     rows_n = n * s
@@ -485,7 +745,38 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     b_ms, b_by = bound_ms(io_bytes, 4 * hd * live_pairs(win) * n * heads)
     say("times", f"flash_attention_fwd window={win} (the served local layers): {ms:.4f} ms, "
                  f"bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of it); {card}")
+    del qkv, fq, fk, fv
+    torch.cuda.empty_cache()
+
+    h, dh, ns, sq = SSM["heads"], SSM["d"] // SSM["heads"], SSM["state"], SSM["seq"]
+    args = ssd_case(n, sq, h, dh, ns, 21)
+    q = KERNEL_CHUNK
+    nbytes = (sum(t.numel() for t in args) + args[0].numel()) * 4  # inputs once, y once
+    # the bound counts the fewest operations of any chunking of the same scan
+    q_min = min((2 ** k for k in range(sq.bit_length())),
+                key=lambda c: ssd_flops(n, sq, h, dh, ns, c))
+    row("ssd_chunked", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssm_scan/kernel.py:66",
+        lambda: ssd_chunked_cuda(*args, chunk=sq), lambda: ssd_ref(*args, chunk=q), 10,
+        nbytes, ssd_flops(n, sq, h, dh, ns, q_min),
+        (n, sq, h, dh, ns, f"kernel and plain at Q={q}, bound at Q={q_min}"))
+    flops_q = ssd_flops(n, sq, h, dh, ns, q)
+    b_ms, b_by = bound_ms(nbytes, flops_q)
+    say("times", f"ssd_chunked at this design's Q={q}: {flops_q / 1e9:.2f} GFLOP, bound "
+                 f"{b_ms:.4f} ms ({b_by}, {b_ms / rows[-1]['ms']:.1%} of it), against "
+                 f"{ssd_flops(n, sq, h, dh, ns, q_min) / 1e9:.2f} GFLOP at Q={q_min}; {card}")
     return rows
+
+
+def ssd_flops(b: int, s: int, h: int, dh: int, n: int, q: int) -> int:
+    """FLOPs of the chunked scan at chunk q: C B^T and scores @ x over each
+    chunk's lower triangle, C state^T and x^T (B decay) in full, and the
+    state's decay once per chunk."""
+    per_head = 0
+    for t0 in range(0, s, q):
+        r = min(q, s - t0)
+        per_head += r * (r + 1) * (n + dh) + 4 * r * n * dh + n * dh
+    return b * h * per_head
 
 
 def main() -> None:
@@ -500,18 +791,23 @@ def main() -> None:
     resolve_device("cuda")  # full-f32 matmuls: the plain versions are f32 references
     phase_build()
     errors = phase_parity()
+    errors["ssd_chunked"] = phase_parity_ssd()
     counts_tf, per_request = phase_serve_transformer()
-    counts_mlp = phase_serve_mlp()
+    phase_serve_mlp()
+    counts_ssm, per_request_ssm = phase_serve_ssm()
+    phase_serve_tenants()
     phase_reference()
     launches = {
         "quantize_int8": counts_tf["quantize_int8_cuda"],
         "dequant_matmul": counts_tf["dequant_matmul_cuda"],
         "flash_attention_fwd": counts_tf["flash_attention_cuda"],
-        "dequantize_int8": counts_mlp["dequantize_int8_cuda"],
+        "dequantize_int8": counts_ssm["dequantize_int8_cuda"],
+        "ssd_chunked": counts_ssm["ssd_chunked_cuda"],
     }
     rows = phase_times(card, launches, errors)
-    say("serve", "wall time per served request (demo_transformer, 4 per microbatch): "
-                 + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in per_request.items()))
+    for what, times in (("demo_transformer", per_request), ("demo_ssm", per_request_ssm)):
+        say("serve", f"wall time per served request ({what}, 4 per microbatch): "
+                     + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in times.items()))
     if not all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows):
         fail("a kernel time is not a positive number")
     import torch

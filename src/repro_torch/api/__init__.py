@@ -43,6 +43,7 @@ _LAZY = {
     "InfeasibleSpecError": "repro_torch.api.spec",
     "SLOClass": "repro_torch.api.spec",
     "SpecIssue": "repro_torch.api.spec",
+    "TenantSpec": "repro_torch.api.spec",
     "Plan": "repro_torch.api.planner",
     "Planner": "repro_torch.api.planner",
     "Deployment": "repro_torch.api.deploy",

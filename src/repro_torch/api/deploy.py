@@ -13,9 +13,10 @@ partition -> place -> deploy), and wraps serving + churn behind a
   * ``metrics()``                            -- predicted vs. observed
     bottleneck, serving counters, reconcile history.
 
-One pipeline per deployment: the JAX package's replica sets, autoscaling,
-tenancy, tracing and strategy swap (``replan``) are not ported yet, and the
-spec rejects the fields that would ask for them.
+A list of specs deploys several tenants onto one shared cluster
+(``repro_torch.tenancy``).  One pipeline per deployment: the JAX package's
+replica sets, autoscaling, tracing and strategy swap (``replan``) are not
+ported yet, and the spec rejects the fields that would ask for them.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from repro_torch.cluster.lifecycle import EdgeCluster
 from repro_torch.cluster.serving import Request, normalize_metrics
 from repro_torch.cluster.store import ArtifactStore
 from repro_torch.core.execution import resolve_device
+from repro_torch.obs import Journal
 
 
 def _passthrough_executor(start: int, stop: int, x):
@@ -46,15 +48,32 @@ def deploy(
     store_root: str | None = None,
     version: int = 0,
     flops_per_s: float = 1e9,
+    **tenancy_kw,
 ) -> "Deployment":
     """Validate ``spec``, build the stack, bootstrap, return the facade.
 
     Raises ``InfeasibleSpecError`` with structured reasons when the spec
     cannot deploy (unknown strategy, layer over capacity, missed SLO, a
     field whose branch is not ported, ...).
+
+    A *list* of specs (``DeploymentSpec`` or ``TenantSpec``) deploys every
+    tenant onto ONE shared cluster and returns a ``MultiTenantDeployment``
+    (``repro_torch.tenancy``): the tenancy scheduler carves the hosting
+    nodes under per-tenant capacity fractions, and churn on one tenant's
+    nodes never perturbs another's pipelines.
     """
+    if isinstance(spec, (list, tuple)):
+        from repro_torch.tenancy import deploy_tenants
+
+        return deploy_tenants(
+            spec, store_root=store_root, version=version,
+            flops_per_s=flops_per_s, **tenancy_kw,
+        )
+    if tenancy_kw:
+        raise TypeError(
+            f"unexpected keyword(s) {sorted(tenancy_kw)} -- tenancy options "
+            f"apply only when deploying a list of specs")
     spec.check()
-    device = resolve_device(spec.device)
     graph, model_executor = spec.resolve_model()
     comm, _ = spec.cluster.build()
     executor_for_version = (
@@ -66,16 +85,47 @@ def deploy(
         store_root if store_root is not None
         else tempfile.mkdtemp(prefix="seifer-deploy-")
     )
+    return _build_deployment(spec, graph, executor_for_version, cluster, store,
+                             version=version)
+
+
+def _build_deployment(
+    spec: DeploymentSpec,
+    graph,
+    executor_for_version,
+    cluster: EdgeCluster,
+    store: ArtifactStore,
+    *,
+    version: int,
+    nodes=None,
+    seed_offset: int = 0,
+    journal: Journal | None = None,
+    source_prefix: str = "",
+) -> "Deployment":
+    """Bootstrap one deployment's control + serving stack on ``cluster``.
+
+    ``nodes`` restricts planning and placement to a hosting-node subset
+    (the tenancy scheduler's carve): the control plane is masked to it, so
+    the deployment can never place -- or be perturbed -- outside its slice.
+    ``seed_offset`` keeps per-tenant probe-noise streams distinct.
+    ``journal``/``source_prefix`` let the tenancy layer share ONE
+    control-plane journal across tenants (records keyed ``<tenant>/...``).
+    """
+    if journal is None:
+        journal = Journal()
     control = ControlPlane(
         cluster, store,
         lambda v: graph, executor_for_version,
         planner=Planner.from_spec(spec),
         capacity=spec.capacity, compression_ratio=spec.compression_ratio,
-        seed=spec.seed,
-        device=device,
+        seed=spec.seed + seed_offset,
+        allowed_nodes=None if nodes is None else set(nodes) | {0},
+        hosting_nodes=None if nodes is None else set(nodes),
+        device=resolve_device(spec.device),
+        journal=journal, journal_source=source_prefix + "control",
     )
     control.bootstrap(version)
-    dep = Deployment(spec, control)
+    dep = Deployment(spec, control, journal=journal)
     dep._check_slos()
     return dep
 
@@ -87,16 +137,21 @@ class Deployment:
     method here.
     """
 
-    def __init__(self, spec: DeploymentSpec, control: ControlPlane):
+    def __init__(self, spec: DeploymentSpec, control: ControlPlane, *,
+                 journal: Journal | None = None):
         self.spec = spec
         self.control = control
+        self.journal = journal if journal is not None else Journal()
         self.loop = PipelinedServingLoop(
             control, microbatch=spec.microbatch,
             queue_depth=spec.queue_depth,
             max_batch=spec.max_batch,
+            admission_depth=spec.admission_depth,
             class_priority=spec.class_priority(),
             class_targets=spec.class_targets(),
         )
+        # journal records are stamped off the serving clock from here on
+        self.journal.bind_clock(lambda: self.loop.clock_s)
 
     # -- introspection -------------------------------------------------------
     @property
@@ -125,6 +180,13 @@ class Deployment:
         """Admit one inference request (a tensor or array; it is moved to
         the deployment's device when its microbatch is admitted)."""
         return self.loop.submit(x, slo_class=slo_class)
+
+    def schedule(
+        self, x: Any, at_s: float, *, slo_class: str | None = None,
+    ) -> Request:
+        """Register one open-loop arrival at virtual time ``at_s`` (rejected
+        when the admission queue is at ``spec.admission_depth``)."""
+        return self.loop.schedule(x, at_s, slo_class=slo_class)
 
     def step(self) -> list[Request]:
         """One admission round (reconciles pending events first)."""
@@ -177,6 +239,7 @@ class Deployment:
                 "last": self.control.dispatcher.last_recovery,
                 "log": list(self.control.dispatcher.recovery_log),
             },
+            "journal": self.journal.summary(),
         })
 
     def _check_slos(self) -> None:

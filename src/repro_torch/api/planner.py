@@ -20,6 +20,8 @@ import dataclasses
 import inspect
 from typing import TYPE_CHECKING, Sequence
 
+import numpy as np
+
 from repro_torch.api.registry import default_strategy, get_strategy
 from repro_torch.core.bottleneck import evaluate_pipeline
 from repro_torch.core.graph import LayerGraph
@@ -370,3 +372,117 @@ class Planner:
         if issues:
             raise InfeasibleSpecError(issues)
         return plan
+
+
+# ---------------------------------------------------------------------------
+# Disjoint sub-clusters: the tenancy scheduler's carve
+# ---------------------------------------------------------------------------
+
+def split_cluster(
+    comm: CommGraph,
+    n_replicas: int,
+    *,
+    dispatcher: int | None = None,
+    nodes: Sequence[int] | None = None,
+    targets: Sequence[int] | None = None,
+) -> list[tuple[int, ...]]:
+    """Partition the hosting nodes into ``n_replicas`` disjoint groups.
+
+    Greedy bandwidth-aware split: seed one group per replica with mutually
+    far-apart (low-bandwidth) nodes -- so each group can grow around a
+    distinct well-connected neighbourhood -- then repeatedly attach the
+    (node, group) pair with the highest mean bandwidth from the node to the
+    group's members, keeping group sizes balanced (within one node).  The
+    dispatcher node never joins a group; it is shared by every replica.
+
+    ``targets`` overrides the balanced sizing with one node count per group
+    (the tenancy scheduler's quota carve): group ``r`` stops growing at
+    ``targets[r]`` members, and when the targets sum to fewer than the
+    hosting nodes the leftovers stay ungrouped (spare capacity).
+
+    Deterministic; raises ``ValueError`` when fewer hosting nodes than
+    replicas are available or the targets cannot be honored.
+    """
+    hosting = [
+        i for i in range(comm.n)
+        if comm.node_capacity[i] > 0 and i != dispatcher
+        and (nodes is None or i in set(nodes))
+    ]
+    if n_replicas < 1:
+        raise ValueError("n_replicas must be >= 1")
+    if n_replicas > len(hosting):
+        raise ValueError(
+            f"cannot split {len(hosting)} hosting node(s) into "
+            f"{n_replicas} replica group(s)"
+        )
+    if targets is not None:
+        targets = [int(t) for t in targets]
+        if len(targets) != n_replicas:
+            raise ValueError(
+                f"targets has {len(targets)} entries for "
+                f"{n_replicas} group(s)")
+        if any(t < 1 for t in targets):
+            raise ValueError("every group target must be >= 1")
+        if sum(targets) > len(hosting):
+            raise ValueError(
+                f"targets sum to {sum(targets)} but only "
+                f"{len(hosting)} hosting node(s) are available")
+    if n_replicas == 1 and targets is None:
+        return [tuple(hosting)]
+
+    bw = comm.bw
+    # seeds: farthest-point traversal on bandwidth (low bw = far), starting
+    # from the best-connected node, so replica neighbourhoods don't overlap
+    totals = {i: float(sum(bw[i, j] for j in hosting if j != i)) for i in hosting}
+    first = max(hosting, key=lambda i: (totals[i], -i))
+    seeds = [first]
+    while len(seeds) < n_replicas:
+        # the node whose strongest link INTO the seed set is weakest
+        cand = max(
+            (i for i in hosting if i not in seeds),
+            key=lambda i: (-max(float(bw[i, s]) for s in seeds), totals[i], -i),
+        )
+        seeds.append(cand)
+
+    if targets is None:
+        base, extra = divmod(len(hosting), n_replicas)
+        targets = [base + (1 if r < extra else 0) for r in range(n_replicas)]
+    groups: list[list[int]] = [[s] for s in seeds]
+    remaining = [i for i in hosting if i not in seeds]
+    while remaining:
+        best = None  # (score, -node, r, node)
+        for r, g in enumerate(groups):
+            if len(g) >= targets[r]:
+                continue
+            for i in remaining:
+                score = float(np.mean([bw[i, j] for j in g]))
+                key = (score, -i, -r)
+                if best is None or key > best[0]:
+                    best = (key, r, i)
+        if best is None:
+            break  # every group is at target; leftovers stay spare
+        _, r, i = best
+        groups[r].append(i)
+        remaining.remove(i)
+    return [tuple(sorted(g)) for g in groups]
+
+
+def subcluster(
+    comm: CommGraph, group: Sequence[int], *, keep: Sequence[int] = ()
+) -> CommGraph:
+    """A replica's view of the cluster: the group's nodes plus the shared
+    dispatcher (``keep``).  Nodes outside the view lose links and capacity;
+    kept-but-not-hosting nodes (the dispatcher) keep links only -- so a
+    plan compiled on the sub-cluster can never place outside the group."""
+    allowed = set(group) | set(keep)
+    bw = comm.bw.copy()
+    cap = comm.node_capacity.copy()
+    group_set = set(group)
+    for i in range(comm.n):
+        if i not in allowed:
+            bw[i, :] = 0.0
+            bw[:, i] = 0.0
+            cap[i] = 0.0
+        elif i not in group_set:
+            cap[i] = min(cap[i], 0.0)
+    return CommGraph(bw=bw, node_capacity=cap)

@@ -10,9 +10,12 @@ capacity, a model that cannot fit the cluster, a field this port does not
 serve yet -- instead of letting the failure surface deep in the solver.
 
 The fields keep the JAX package's names and defaults.  Those whose serving
-branch is not ported yet (``serving="sync"``, ``replicas``,
-``admission_depth``, ``arrival``, ``autoscale``, ``trace``) are rejected
-with a ``not_ported`` issue when set to anything but their default.
+branch is not ported yet (``serving="sync"``, ``replicas``, ``arrival``,
+``autoscale``, ``trace``) are rejected with a ``not_ported`` issue when set
+to anything but their default.
+
+``TenantSpec`` wraps a ``DeploymentSpec`` with a tenant's quota for
+multi-tenant serving on one shared cluster (``deploy([...])``).
 """
 
 from __future__ import annotations
@@ -139,14 +142,14 @@ def _resolve_model(model, *, device="cuda") -> tuple[LayerGraph, Callable | None
 
     Accepts a ``LayerGraph``, a model-zoo name (``vgg16``, ``resnet50``,
     ``inceptionv3``, ``mobilenetv2``), or one of the executable demo models
-    (``demo_mlp`` / ``demo_transformer``, which also supply versioned
-    executors on ``device``).  ``demo_ssm`` waits for the SSD-scan slice.
+    (``demo_mlp`` / ``demo_ssm`` / ``demo_transformer``, which also supply
+    versioned executors on ``device``).
     """
     if isinstance(model, LayerGraph):
         return model, None
     if not isinstance(model, str):
         raise TypeError(f"model must be a LayerGraph or name, got {type(model)}")
-    from repro_torch.core.model_zoo import PAPER_MODELS, demo_mlp, demo_transformer
+    from repro_torch.core.model_zoo import PAPER_MODELS, demo_mlp, demo_ssm, demo_transformer
 
     if model in PAPER_MODELS:
         return PAPER_MODELS[model](), None
@@ -155,8 +158,7 @@ def _resolve_model(model, *, device="cuda") -> tuple[LayerGraph, Callable | None
     if model in ("demo_transformer", "transformer"):
         return demo_transformer(device=device)
     if model in ("demo_ssm", "ssm"):
-        raise NotImplementedError(
-            f"model {model!r} runs on the SSD-scan kernel, which is not ported yet")
+        return demo_ssm(device=device)
     raise KeyError(model)
 
 
@@ -165,7 +167,6 @@ def _resolve_model(model, *, device="cuda") -> tuple[LayerGraph, Callable | None
 NOT_PORTED_FIELDS = {
     "serving": "pipelined",
     "replicas": 1,
-    "admission_depth": None,
     "arrival": None,
     "autoscale": None,
     "trace": None,
@@ -180,7 +181,7 @@ class DeploymentSpec:
     ------
     model:
         ``LayerGraph``, model-zoo name, or an executable demo model name
-        (``"demo_mlp"``, ``"demo_transformer"``).
+        (``"demo_mlp"``, ``"demo_ssm"``, ``"demo_transformer"``).
     cluster:
         ``ClusterSpec`` (or a raw ``CommGraph``, wrapped automatically).
     capacity:
@@ -219,6 +220,10 @@ class DeploymentSpec:
     max_batch:
         continuous batching: coalesce up to this many queued requests into
         one microbatch per admission.  ``None`` keeps ``microbatch``.
+    admission_depth:
+        open-loop admission bound: a ``schedule``d arrival that finds this
+        many requests queued is rejected (load shedding); ``None`` admits
+        everything.
     slo_classes:
         request latency classes (``SLOClass``): batch-admission priority and
         per-class latency targets (reported as attainment).
@@ -226,7 +231,7 @@ class DeploymentSpec:
         where the stage executors and codecs compute: ``"cuda"`` (default)
         runs the hand-written kernels, ``"cpu"`` their plain versions.
         It replaces the JAX package's ``use_pallas``/``interpret`` knob.
-    serving / replicas / admission_depth / arrival / autoscale / trace:
+    serving / replicas / arrival / autoscale / trace:
         the JAX package's fields for branches not ported yet; only their
         defaults are accepted.
     """
@@ -341,12 +346,11 @@ class DeploymentSpec:
             except KeyError as e:
                 from repro_torch.core.model_zoo import PAPER_MODELS
 
-                known = ", ".join([*PAPER_MODELS, "demo_mlp", "demo_transformer"])
+                known = ", ".join([*PAPER_MODELS, "demo_mlp", "demo_ssm",
+                                   "demo_transformer"])
                 issues.append(SpecIssue(
                     "unknown_model", f"model {e.args[0]!r} not in the zoo ({known})"
                 ))
-            except NotImplementedError as e:
-                issues.append(SpecIssue("not_ported", str(e)))
             except TypeError as e:
                 issues.append(SpecIssue("bad_model", str(e)))
 
@@ -402,6 +406,16 @@ class DeploymentSpec:
                 "bad_batching",
                 f"max_batch must be an int >= 1 or None, got {self.max_batch!r}",
             ))
+        if self.admission_depth is not None and (
+            not isinstance(self.admission_depth, int)
+            or isinstance(self.admission_depth, bool)
+            or self.admission_depth < 1
+        ):
+            issues.append(SpecIssue(
+                "bad_batching",
+                f"admission_depth must be an int >= 1 or None, "
+                f"got {self.admission_depth!r}",
+            ))
         if self.slo_classes is not None:
             seen = set()
             for c in self.slo_classes:
@@ -449,3 +463,130 @@ class DeploymentSpec:
         if issues:
             raise InfeasibleSpecError(issues)
         return self
+
+
+# ---------------------------------------------------------------------------
+# Multi-tenant serving: one shared cluster, many deployments
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TenantSpec:
+    """One tenant of a shared cluster: a ``DeploymentSpec`` plus its quota.
+
+    ``capacity_fraction`` is the tenant's share of the cluster's hosting
+    nodes (0 < f <= 1); ``None`` splits whatever the explicit fractions
+    leave over equally among the unspecified tenants.  ``weight`` orders
+    the router's weighted-fair service across tenants.  ``admission_depth``
+    is the tenant's open-loop admission quota (overrides the wrapped
+    spec's own ``admission_depth``; ``None`` falls back to it).
+    """
+
+    name: str
+    spec: DeploymentSpec
+    capacity_fraction: float | None = None
+    weight: float = 1.0
+    admission_depth: int | None = None
+
+    def quota(self) -> int | None:
+        """The effective admission bound: tenant override, else the spec's."""
+        if self.admission_depth is not None:
+            return self.admission_depth
+        return self.spec.admission_depth
+
+    def validate(self) -> tuple[SpecIssue, ...]:
+        issues = []
+        if not self.name or not isinstance(self.name, str):
+            issues.append(SpecIssue(
+                "bad_tenant",
+                f"tenant name must be a non-empty string, got {self.name!r}"))
+        if not isinstance(self.spec, DeploymentSpec):
+            issues.append(SpecIssue(
+                "bad_tenant",
+                f"tenant {self.name!r}: spec must be a DeploymentSpec, "
+                f"got {type(self.spec).__name__}"))
+        if self.capacity_fraction is not None and not (
+            0.0 < self.capacity_fraction <= 1.0
+        ):
+            issues.append(SpecIssue(
+                "bad_quota",
+                f"tenant {self.name!r}: capacity_fraction must be in (0, 1], "
+                f"got {self.capacity_fraction!r}"))
+        if self.weight <= 0:
+            issues.append(SpecIssue(
+                "bad_quota",
+                f"tenant {self.name!r}: weight must be > 0, "
+                f"got {self.weight!r}"))
+        if self.admission_depth is not None and (
+            not isinstance(self.admission_depth, int)
+            or isinstance(self.admission_depth, bool)
+            or self.admission_depth < 1
+        ):
+            issues.append(SpecIssue(
+                "bad_quota",
+                f"tenant {self.name!r}: admission_depth must be an int >= 1 "
+                f"or None, got {self.admission_depth!r}"))
+        return tuple(issues)
+
+
+def as_tenants(specs) -> tuple[TenantSpec, ...]:
+    """Normalize a tenant list: bare ``DeploymentSpec``s become equal-share
+    tenants named ``tenant0``, ``tenant1``, ... in list order."""
+    tenants = []
+    for i, s in enumerate(specs):
+        if isinstance(s, TenantSpec):
+            tenants.append(s)
+        elif isinstance(s, DeploymentSpec):
+            tenants.append(TenantSpec(name=f"tenant{i}", spec=s))
+        else:
+            raise TypeError(
+                f"tenant entries must be TenantSpec or DeploymentSpec, "
+                f"got {type(s).__name__}")
+    return tuple(tenants)
+
+
+def _same_cluster(a, b) -> bool:
+    """Two ClusterSpecs describe one physical cluster (ndarray-safe)."""
+    if a is b:
+        return True
+    if not (isinstance(a, ClusterSpec) and isinstance(b, ClusterSpec)):
+        return False
+    if a.comm is not None or b.comm is not None:
+        return a.comm is b.comm
+    return (a.n_nodes, a.capacity_bytes, a.arena_m, a.seed) == (
+        b.n_nodes, b.capacity_bytes, b.arena_m, b.seed)
+
+
+def validate_tenants(tenants: tuple[TenantSpec, ...]) -> tuple[SpecIssue, ...]:
+    """Cross-tenant checks for one shared cluster; per-tenant issues are
+    prefixed with the tenant name so one report covers the whole fleet."""
+    issues: list[SpecIssue] = []
+    if not tenants:
+        return (SpecIssue("bad_tenant", "tenant list is empty"),)
+    seen: set[str] = set()
+    for t in tenants:
+        issues.extend(t.validate())
+        if t.name in seen:
+            issues.append(SpecIssue(
+                "duplicate_tenant", f"duplicate tenant name {t.name!r}"))
+        seen.add(t.name)
+        if isinstance(t.spec, DeploymentSpec):
+            issues.extend(SpecIssue(i.code, f"tenant {t.name!r}: {i.message}")
+                          for i in t.spec.validate())
+    given = [t.capacity_fraction for t in tenants
+             if t.capacity_fraction is not None]
+    if sum(given) > 1.0 + 1e-9:
+        issues.append(SpecIssue(
+            "quota_exceeded",
+            f"tenant capacity fractions sum to {sum(given):.3f} > 1 -- the "
+            f"cluster cannot honor every quota"))
+    first = tenants[0].spec
+    for t in tenants[1:]:
+        if (isinstance(t.spec, DeploymentSpec)
+                and isinstance(first, DeploymentSpec)
+                and not _same_cluster(first.cluster, t.spec.cluster)):
+            issues.append(SpecIssue(
+                "tenant_cluster_mismatch",
+                f"tenant {t.name!r} declares a different cluster than "
+                f"{tenants[0].name!r}; multi-tenant deployments share one "
+                f"EdgeCluster"))
+    return tuple(issues)

@@ -116,6 +116,8 @@ class ControlPlane:
         scoped_recovery: bool = True,
         recovery_width: int | None = None,
         device=None,
+        journal=None,
+        journal_source: str = "control",
     ):
         self.cluster = cluster
         self.store = store
@@ -139,6 +141,10 @@ class ControlPlane:
         self.generation = 0
         self._events: deque[ClusterEvent] = deque()
         self.history: list[ReconcileAction] = []
+        # shared control-plane journal (obs.journal.Journal); every non-noop
+        # decision ALSO lands there, tagged with this plane's source name
+        self.journal = journal
+        self.journal_source = str(journal_source)
 
     # -- bootstrap -----------------------------------------------------------
     def bootstrap(
@@ -188,6 +194,22 @@ class ControlPlane:
     def planner(self) -> Planner:
         return self.dispatcher.planner
 
+    def owned_nodes(self) -> set[int] | None:
+        """Nodes within this control plane's view (``None`` = unmasked,
+        the whole cluster).  Tenant-scoped event routing delivers a node's
+        churn only to the planes that own it."""
+        allowed = self.dispatcher.allowed_nodes
+        return None if allowed is None else set(allowed)
+
+    def adopt_node(self, node_id: int) -> None:
+        """Extend a masked view by one node (tenant growth); a no-op for
+        unmasked planes, which already see everything."""
+        disp = self.dispatcher
+        if disp.allowed_nodes is not None:
+            disp.allowed_nodes.add(node_id)
+        if disp.hosting_nodes is not None:
+            disp.hosting_nodes.add(node_id)
+
     # -- event intake --------------------------------------------------------
     def submit(self, event: ClusterEvent) -> None:
         """Enqueue an observation; convergence happens at ``reconcile()``."""
@@ -223,7 +245,20 @@ class ControlPlane:
             )
             self._replace()
         self.history.extend(actions)
+        for a in actions:
+            self._journal_action(a)
         return actions
+
+    def _journal_action(self, action: ReconcileAction) -> None:
+        """Record a non-noop reconcile decision on the shared journal."""
+        if self.journal is None or action.kind == "noop":
+            return
+        self.journal.append("reconcile", self.journal_source, {
+            "event": (type(action.event).__name__
+                      if action.event is not None else None),
+            "action": action.kind,
+            "detail": action.detail,
+        })
 
     def _handle(self, event: ClusterEvent) -> ReconcileAction:
         if isinstance(event, VersionBumped):
@@ -369,6 +404,12 @@ class ControlPlane:
             self.pipeline, self.desired.graph, self.desired.version,
             capacity=self.desired.capacity, scope_nodes=scope,
         )
+        if self.journal is not None and self.dispatcher.last_recovery:
+            # the scoped-recovery record (affected stages included) lands on
+            # the journal next to the reconcile action that triggered it
+            self.journal.append(
+                "recovery", self.journal_source,
+                dict(self.dispatcher.last_recovery))
 
     def _current_bottleneck(self) -> float:
         """Max link time of the deployed path on the TRUE bandwidths,

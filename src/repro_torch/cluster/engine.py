@@ -39,6 +39,7 @@ executor (kernels included), and every hop applies its codec's transform.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 from collections import deque
 from typing import Any
 
@@ -95,7 +96,10 @@ class PipelinedServingLoop:
     """Discrete-event pipelined serving over a ``ControlPlane``.
 
     Reconciles pending events before advancing; a non-trivial reconcile
-    costs ``recovery_penalty_s`` of virtual time.
+    costs ``recovery_penalty_s`` of virtual time.  Requests enter closed-loop
+    (``submit``: now) or open-loop (``schedule``: at a trace timestamp);
+    ``admission_depth`` bounds the admission queue, and an arrival that
+    finds it full is rejected (load shedding, counted in ``rejected``).
     """
 
     def __init__(
@@ -107,6 +111,7 @@ class PipelinedServingLoop:
         max_attempts: int = 5,
         recovery_penalty_s: float = 0.25,
         max_batch: int | None = None,
+        admission_depth: int | None = None,
         class_priority: dict[str, int] | None = None,
         class_targets: dict[str, float | None] | None = None,
     ):
@@ -114,6 +119,8 @@ class PipelinedServingLoop:
             raise ValueError("queue_depth must be >= 1")
         if max_batch is not None and max_batch < 1:
             raise ValueError("max_batch must be >= 1")
+        if admission_depth is not None and admission_depth < 1:
+            raise ValueError("admission_depth must be >= 1")
         self.control = control
         self.microbatch = int(microbatch)
         self.queue_depth = int(queue_depth)
@@ -122,11 +129,18 @@ class PipelinedServingLoop:
         # continuous batching: coalesce up to max_batch queued requests per
         # admission (None keeps the fixed microbatch target of closed loops)
         self.max_batch = None if max_batch is None else int(max_batch)
+        # open-loop admission bound: arrivals beyond this queue depth are
+        # rejected (load shedding), never silently dropped
+        self.admission_depth = (
+            None if admission_depth is None else int(admission_depth))
         self.class_priority = dict(class_priority or {})
         self.class_targets = dict(class_targets or {})
         self.queue: deque[Request] = deque()  # admission queue
         self.completed: list[Request] = []
         self.failed: list[Request] = []
+        self.rejected: list[Request] = []
+        self._arrivals: list[tuple[float, int, Request]] = []  # future arrivals
+        self._arrival_seq = 0  # heap tiebreak
         self._max_batch_seen = 0
         self.clock_s = 0.0
         self._next_id = 0
@@ -157,9 +171,62 @@ class PipelinedServingLoop:
         self.queue.append(req)
         return req
 
+    def schedule(self, x: Any, at_s: float, *,
+                 slo_class: str | None = None) -> Request:
+        """Open-loop admission: the request arrives at virtual time ``at_s``
+        (a trace timestamp), not when the caller happened to invoke us.
+        Future arrivals wait in a heap and are admitted -- or rejected, when
+        the admission queue is at ``admission_depth`` -- as the clock passes
+        them."""
+        req = Request(
+            self._next_id, x, submitted_s=float(at_s), slo_class=slo_class,
+            priority=self.class_priority.get(slo_class, 0),
+        )
+        self._next_id += 1
+        return self.schedule_request(req)
+
+    def schedule_request(self, req: Request) -> Request:
+        """Timestamped admission of an already-created request."""
+        if req.submitted_s <= self.clock_s:
+            self._admit_bounded(req)
+        else:
+            self._arrival_seq += 1
+            heapq.heappush(
+                self._arrivals, (req.submitted_s, self._arrival_seq, req))
+        return req
+
+    def admit(self, req: Request) -> Request:
+        """Admit an already-created request, unbounded (its ids are minted
+        elsewhere, and the caller applied its own admission policy)."""
+        self.queue.append(req)
+        return req
+
+    def _admit_bounded(self, req: Request) -> None:
+        if (self.admission_depth is not None
+                and len(self.queue) >= self.admission_depth):
+            self.rejected.append(req)
+        else:
+            self.queue.append(req)
+
+    def _admit_due(self) -> None:
+        """Move every arrival whose timestamp has passed into the queue."""
+        while self._arrivals and self._arrivals[0][0] <= self.clock_s:
+            _, _, req = heapq.heappop(self._arrivals)
+            self._admit_bounded(req)
+
+    @property
+    def pending_arrivals(self) -> int:
+        return len(self._arrivals)
+
+    @property
+    def next_arrival_s(self) -> float | None:
+        return self._arrivals[0][0] if self._arrivals else None
+
     @property
     def backlog(self) -> int:
-        """Requests not yet delivered: admission queue + in-flight batches."""
+        """Requests not yet delivered: admission queue + in-flight batches.
+        (Future arrivals are offered load, not backlog -- they have not
+        entered the system yet.)"""
         return len(self.queue) + sum(len(m.requests) for m in self._inflight)
 
     # -- one serving round -----------------------------------------------------
@@ -190,6 +257,7 @@ class PipelinedServingLoop:
             self._rebind(affected=frozenset(restarted))
         if self.control.pending or not pipe.healthy():
             self._reconcile()
+        self._admit_due()
         self._schedule()
         while len(self.completed) == done0:
             if not self._advance():
@@ -197,10 +265,13 @@ class PipelinedServingLoop:
         return self.completed[done0:]
 
     def drain(self, max_rounds: int = 100_000) -> list[Request]:
-        """Step until every admitted request completes (or max_rounds)."""
+        """Step until every admitted request completes (or max_rounds).
+        Open-loop schedules keep draining through future arrivals: the clock
+        jumps across idle gaps in the trace."""
         done: list[Request] = []
         for _ in range(max_rounds):
-            if not self.backlog and not self.control.pending:
+            if (not self.backlog and not self._arrivals
+                    and not self.control.pending):
                 break
             done.extend(self.step())
         return done
@@ -218,7 +289,9 @@ class PipelinedServingLoop:
             "mode": "pipelined",
             "completed": done,
             "failed": len(self.failed),
+            "rejected": len(self.rejected),
             "backlog": self.backlog,
+            "pending_arrivals": self.pending_arrivals,
             "clock_s": t,
             "throughput": done / t if t > 0 else 0.0,
             "retries": sum(r.attempts for r in self.completed),
@@ -229,6 +302,7 @@ class PipelinedServingLoop:
             "queue_depth": self.queue_depth,
             "batching": {
                 "max_batch": self.max_batch,
+                "admission_depth": self.admission_depth,
                 "max_batch_seen": self._max_batch_seen,
                 "mean_batch": (
                     done / self._mb_completed if self._mb_completed else 0.0),
@@ -410,11 +484,21 @@ class PipelinedServingLoop:
         self.clock_s = max(self.clock_s, t)
 
     def _advance(self) -> bool:
-        """Pop the earliest event batch off the virtual clock; False if idle."""
+        """Pop the earliest event batch off the virtual clock; False if idle.
+
+        A scheduled arrival is an event like any other: when it precedes
+        every pending compute/transfer (or the pipeline is idle), the clock
+        jumps to it and admission re-runs."""
         pend = [m for m in self._inflight if m.location[0] in ("compute", "link")]
         times = [m.ready_at for m in pend]
+        arrival = self.next_arrival_s
         if not times:
-            return False  # idle
+            if arrival is None:
+                return False  # idle
+            self._elapse(arrival)  # idle gap in the trace: jump to the arrival
+            self._admit_due()
+            self._schedule()
+            return True
         t = min(times)
         if t == float("inf"):
             # every pending event is a transfer on a dead link: it can never
@@ -424,7 +508,13 @@ class PipelinedServingLoop:
             self._requeue_stalled([m for m in pend if m.ready_at == float("inf")])
             self._schedule()
             return True
+        if arrival is not None and arrival < t:
+            self._elapse(arrival)
+            self._admit_due()
+            self._schedule()
+            return True
         self._elapse(t)
+        self._admit_due()
         k = len(self._stages)
         for mb in sorted(pend, key=lambda m: m.mb_id):
             if mb.ready_at > t:

@@ -35,6 +35,7 @@ class Request:
     result: Any = None
     slo_class: str | None = None
     priority: int = 0
+    tenant: str | None = None  # stamped by the tenancy router
 
     @property
     def done(self) -> bool:

@@ -8,9 +8,9 @@ to 1 byte each (the paper quantizes models with TFLite before deployment);
 activations default to 4 bytes (float), with an optional compression ratio
 applied by the caller (paper: ZFP/LZ4).
 
-These graphs feed ``core.simulate`` and the planner.  ``demo_mlp`` and
-``demo_transformer`` below are the executable models: a layer graph plus
-versioned torch executors.
+These graphs feed ``core.simulate`` and the planner.  ``demo_mlp``,
+``demo_ssm`` and ``demo_transformer`` below are the executable models: a
+layer graph plus versioned torch executors.
 """
 
 from __future__ import annotations
@@ -166,8 +166,9 @@ PAPER_MODELS = {
 
 def params_from_numpy(arrays: Mapping[str, Any], device) -> dict:
     """Weights from elsewhere (e.g. the JAX package's, as numpy arrays) as
-    float32 tensors on ``device``: ``ws`` for ``demo_mlp``; ``wqkv``,
-    ``wo``, ``w1``, ``w2`` for ``demo_transformer``."""
+    float32 tensors on ``device``: ``ws`` for ``demo_mlp``; ``wb``, ``wc``,
+    ``wd`` for ``demo_ssm``; ``wqkv``, ``wo``, ``w1``, ``w2`` for
+    ``demo_transformer``."""
     import numpy as np
     import torch
 
@@ -217,6 +218,79 @@ def demo_mlp(d: int = 32, n_layers: int = 8, *, device="cuda",
         ws = _weights(params_for_version, version, device, draw)["ws"]
         return make_layer_executor(
             [lambda x, w=ws[i]: torch.tanh(x @ w) for i in range(n_layers)]
+        )
+
+    return graph, executor_for_version
+
+
+def demo_ssm(d: int = 24, n_layers: int = 6, seq: int = 8, heads: int = 2,
+             state: int = 4, *, device="cuda",
+             params_for_version: Callable[[int], Mapping[str, Any]] | None = None):
+    """An executable state-space demo model (Mamba2-style mixing layers).
+
+    The multi-tenant deployments need a second model whose layer shapes
+    differ from ``demo_mlp``'s: same ``(graph, executor_for_version)``
+    contract, but each layer is a selective-state scan on
+    ``kernels.ssm_scan``'s ``ssd_chunked`` (the CUDA kernel on a CUDA
+    device): ``bm = x @ Wb``, ``cm = x @ Wc``, ``dt = softplus(x @ Wd)``,
+    ``a = -0.5``, the chunked SSD recurrence at ``chunk=seq``, and
+    ``tanh(x + y)``.  Activations flow between layers as ``(seq, d)``
+    float32, so ``out_bytes = seq * d * 4``, and per-layer params are the
+    B/C/dt projections.  There is no fused codec handler (the JAX model has
+    none): an int8 hop decodes through ``dequantize_int8``.
+
+    Weights are ``N(0, 1) * 0.3`` drawn from
+    ``torch.Generator(device).manual_seed(version)`` -- other numbers than
+    the JAX package's ``jax.random`` draws -- unless ``params_for_version``
+    (version -> ``{"wb", "wc", "wd"}`` stacked over layers) supplies them.
+    """
+    import torch
+
+    from repro_torch.core.execution import resolve_device
+    from repro_torch.core.graph import chain
+    from repro_torch.kernels.ssm_scan import ssd_chunked
+    from repro_torch.runtime.pipeline import make_layer_executor
+
+    if d % heads != 0:
+        raise ValueError(f"d={d} must be divisible by heads={heads}")
+    device = resolve_device(device)
+    dh = d // heads
+    act_bytes = seq * d * ACT_BYTES
+    # per-layer params: Wb/Wc (d x state each) + Wdt (d x heads) + a (heads)
+    param_bytes = (2 * d * state + d * heads + heads) * 4
+    graph = chain(
+        f"ssm{n_layers}", [(param_bytes, act_bytes)] * n_layers,
+        in_bytes=act_bytes,
+    )
+
+    def draw(gen):
+        def normal(shape):
+            return torch.randn(shape, generator=gen, device=device) * 0.3
+
+        return {"wb": normal((n_layers, d, state)), "wc": normal((n_layers, d, state)),
+                "wd": normal((n_layers, d, heads))}
+
+    def executor_for_version(version: int):
+        p = _weights(params_for_version, version, device, draw)
+        wb, wc, wd = p["wb"], p["wc"], p["wd"]
+        a = torch.full((heads,), -0.5, dtype=torch.float32, device=device)
+
+        def layer(x, i):
+            # batch-polymorphic: the serving engine stacks a microbatch onto
+            # a leading axis; fold any leading dims into the scan's batch
+            x = x.to(torch.float32)
+            xb = x.reshape(-1, seq, d)
+            n = xb.shape[0]
+            xs = xb.reshape(n, seq, heads, dh)
+            bm = xb @ wb[i]
+            cm = xb @ wc[i]
+            z = xb @ wd[i]
+            dt = torch.logaddexp(z, torch.zeros_like(z))  # jax.nn.softplus's form
+            y = ssd_chunked(xs, bm, cm, dt, a, chunk=seq)
+            return torch.tanh(xb + y.reshape(n, seq, d)).reshape(x.shape)
+
+        return make_layer_executor(
+            [lambda x, i=i: layer(x, i) for i in range(n_layers)]
         )
 
     return graph, executor_for_version

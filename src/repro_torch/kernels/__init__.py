@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 ``quantize`` (int8 boundary codec: quantize, dequantize, fused
-dequant-matmul) and ``flash_attention`` (forward).  CUDA sources live in
+dequant-matmul), ``flash_attention`` (forward) and ``ssm_scan`` (the
+chunked Mamba2 SSD scan).  CUDA sources live in
 ``csrc/`` and are built at the first CUDA call (``_build``).
 """
 
@@ -11,6 +12,7 @@ from repro_torch.kernels.quantize.kernel import (
     dequantize_int8_cuda,
     quantize_int8_cuda,
 )
+from repro_torch.kernels.ssm_scan.kernel import ssd_chunked_cuda
 
 # every kernel wrapper; each counts its launches in ``.launches``
 KERNEL_WRAPPERS = (
@@ -18,6 +20,7 @@ KERNEL_WRAPPERS = (
     dequantize_int8_cuda,
     dequant_matmul_cuda,
     flash_attention_cuda,
+    ssd_chunked_cuda,
 )
 
 

@@ -1,0 +1,110 @@
+"""Plain PyTorch version of the chunked SSD (Mamba2) scan.
+
+Inputs are the post-projection tensors of one mamba layer, in the JAX
+package's layout:
+  xs  (B, S, H, dh)  state inputs
+  bm  (B, S, N)      input projections B_t
+  cm  (B, S, N)      output projections C_t
+  dt  (B, S, H)      softplus'd step sizes
+  a   (H,)           negative decay rates
+
+Output: y (B, S, H, dh) f32 with
+y_t = sum_{s<=t} C_t^T (prod exp(dt A)) dt_s B_s x_s, and the final state
+(B, H, dh, N).  A Python loop over chunks takes the place of ``lax.scan``.
+The lower-triangular decay matrix is masked *before* ``exp`` (``-inf`` ->
+0): the upper triangle's ``exp(cum_t - cum_s)`` overflows for s > t, and an
+``inf`` multiplied by a 0/1 mask would be NaN.
+
+The in-chunk cumsum of ``dt * a`` is taken in one fixed order
+(``chunk_cumsum``), the one XLA's cumsum takes on the CPU.  Its rounding is
+amplified by ``exp(cum_t - cum_s)`` (cum reaches -1e2 within a chunk, where
+one f32 ulp is ~1e-5), so the order decides whether the port holds the JAX
+package's 1e-5 pin; the CUDA kernel sums in the same order, so its cum is
+bit-identical to this version's.
+
+This is the function ``csrc/ssd_scan.cu`` computes; the CPU tests hold it to
+the JAX package, and ``chip_smoke.py`` holds the kernel to it on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+SCAN_BLOCK = 16  # chunk_cumsum's block length
+
+
+def chunk_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive cumsum along ``dim`` in a fixed order: in order within
+    blocks of ``SCAN_BLOCK`` (the last one zero-padded), plus the exclusive
+    prefix of the block totals, themselves summed the same way."""
+    x = x.movedim(dim, 0)
+    q = x.shape[0]
+    if q <= SCAN_BLOCK:
+        out = torch.empty_like(x)
+        run = x[0]
+        out[0] = run
+        for t in range(1, q):
+            run = run + x[t]
+            out[t] = run
+        return out.movedim(0, dim)
+    pad = -q % SCAN_BLOCK
+    xp = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))]) if pad else x
+    within = chunk_cumsum(xp.reshape(-1, SCAN_BLOCK, *x.shape[1:]), 1)
+    incl = chunk_cumsum(within[:, -1], 0)
+    excl = torch.cat([torch.zeros_like(incl[:1]), incl[:-1]])
+    out = (excl[:, None] + within).reshape(-1, *x.shape[1:])[:q]
+    return out.movedim(0, dim)
+
+
+def chunk_of(s: int, chunk: int) -> int:
+    """The chunk actually used, ``min(chunk, s)``; raises unless it divides s."""
+    q = min(chunk, s)
+    if q < 1 or s % q:
+        raise ValueError(f"seq {s} must divide chunk {q}")
+    return q
+
+
+def ssd_ref(xs, bm, cm, dt, a, *, chunk: int = 64):
+    """-> (y (B, S, H, dh), final state (B, H, dh, N)), f32 (f64 for f64
+    inputs: ``chip_smoke.py`` takes that as its exact yardstick)."""
+    b, s, h, dh = xs.shape
+    n = bm.shape[-1]
+    q = chunk_of(s, chunk)
+    nc = s // q
+    da = dt * a  # (B, S, H)
+    # f32 (bf16 inputs widen, as in the JAX package); f64 stays f64
+    xs_c = xs.reshape(b, nc, q, h, dh).to(torch.promote_types(xs.dtype, torch.float32))
+    bm_c = bm.reshape(b, nc, q, n)
+    cm_c = cm.reshape(b, nc, q, n)
+    dt_c = dt.reshape(b, nc, q, h)
+    cum = chunk_cumsum(da.reshape(b, nc, q, h), 2)
+    upper = ~torch.ones((q, q), dtype=torch.bool, device=xs.device).tril()
+
+    state = torch.zeros((b, h, dh, n), dtype=xs_c.dtype, device=xs.device)
+    ys = []
+    for c in range(nc):
+        xs_k, bm_k, cm_k, dt_k, cum_k = (
+            xs_c[:, c], bm_c[:, c], cm_c[:, c], dt_c[:, c], cum[:, c])
+        ldiff = cum_k[:, :, None, :] - cum_k[:, None, :, :]  # (B, t, s, H)
+        lmat = torch.exp(ldiff.masked_fill(upper[None, :, :, None], float("-inf")))
+        gbc = torch.einsum("btn,bsn->bts", cm_k, bm_k)
+        scores = gbc[:, :, :, None] * lmat * dt_k[:, None, :, :]
+        y_intra = torch.einsum("btsh,bshd->bthd", scores, xs_k)
+        y_inter = torch.einsum("btn,bhdn->bthd", cm_k, state) * torch.exp(cum_k)[..., None]
+        decay_out = torch.exp(cum_k[:, -1:, :] - cum_k)
+        contrib = torch.einsum("bsh,bsn,bshd->bhdn", decay_out * dt_k, bm_k, xs_k)
+        state = state * torch.exp(cum_k[:, -1])[:, :, None, None] + contrib
+        ys.append(y_intra + y_inter)
+    return torch.stack(ys, 1).reshape(b, s, h, dh), state
+
+
+def ssd_ref_padded(xs, bm, cm, dt, a, *, chunk: int):
+    """``ssd_ref`` at ``chunk`` for any S: S is zero-padded up to a multiple
+    of ``chunk`` (zero rows add nothing to earlier rows of a causal scan)
+    and y cut back to S.  At the kernel's chunk this is the plain version
+    chunked exactly as the CUDA kernel chunks, ragged last chunk included."""
+    s = xs.shape[1]
+    pad = -s % chunk
+    padded = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (xs, bm, cm, dt)]
+    return ssd_ref(*padded, a, chunk=chunk)[0][:, :s]

@@ -6,8 +6,9 @@ is False.  Run on a CUDA machine with
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Shapes: small ragged ones, and the shapes the served path gives each kernel
-(``chip_smoke.py`` phase 4: demo_transformer at d=4096, H=32, KH=16,
-hd=128, S=8192, 4 requests per microbatch).  This file imports no JAX: the
+(``chip_smoke.py``: demo_transformer at d=4096, H=32, KH=16, hd=128,
+S=8192, and demo_ssm at d=5120, H=80, dh=N=64, S=8192, 4 requests per
+microbatch).  This file imports no JAX: the
 machine with the card has none.
 """
 
@@ -31,6 +32,8 @@ from repro_torch.kernels.quantize.ref import (
     dequantize_ref,
     quantize_ref,
 )
+from repro_torch.kernels.ssm_scan.kernel import KERNEL_CHUNK, ssd_chunked_cuda
+from repro_torch.kernels.ssm_scan.ref import ssd_ref, ssd_ref_padded
 
 pytestmark = pytest.mark.gpu
 
@@ -154,3 +157,56 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = _randn((1, 64, 2, 32), 9, cuda)
     with pytest.raises(ValueError):
         flash_attention_cuda(q, q, q)  # hd=32 has no kernel
+
+
+def _ssd_case(cuda, b, s, h, dh, n, seed):
+    """Inputs scaled as the JAX package's own kernel test scales them."""
+    xs = _randn((b, s, h, dh), seed, cuda, 0.5)
+    bm = _randn((b, s, n), seed + 1, cuda, 0.5)
+    cm = _randn((b, s, n), seed + 2, cuda, 0.5)
+    dt = torch.nn.functional.softplus(_randn((b, s, h), seed + 3, cuda))
+    a = -torch.exp(_randn((h,), seed + 4, cuda, 0.3))
+    return xs, bm, cm, dt, a
+
+
+@pytest.mark.parametrize("b,s,h,dh,n,chunk", [
+    (2, 256, 4, 64, 32, 64), (1, 512, 8, 64, 64, 128), (2, 8, 2, 12, 4, 8),
+    (1, 96, 3, 64, 16, 32), (2, 200, 5, 32, 64, 8), (1, 130, 80, 64, 64, 130),
+    (1, 64, 80, 64, 16, 64), (2, 192, 2, 64, 64, 64),
+])
+def test_ssd_matches_plain(cuda, b, s, h, dh, n, chunk):
+    """Against the plain version chunked as the kernel chunks
+    (``ssd_ref_padded`` at ``KERNEL_CHUNK``), cum is
+    bit-identical and only the products' f32 order differs: 1e-5 of
+    max|plain|, the JAX package's kernel-vs-ref pin.  Against the plain
+    version at the caller's chunk: 1e-4, its chunk-invariance pin."""
+    args = _ssd_case(cuda, b, s, h, dh, n, 10)
+    out = ssd_chunked_cuda(*args, chunk=chunk)
+    same = ssd_ref_padded(*args, chunk=KERNEL_CHUNK)
+    ref, _ = ssd_ref(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - same).abs().max().item() <= 1e-5 * same.abs().max().item()
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_ssd_main_path_shape(cuda):
+    """demo_ssm's served layer: (4, 8192, 80, 64) x N=64, plain at chunk 64."""
+    args = _ssd_case(cuda, 4, 8192, 80, 64, 64, 11)
+    out = ssd_chunked_cuda(*args, chunk=8192)
+    ref, _ = ssd_ref(*args, chunk=KERNEL_CHUNK)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_ssd_wrapper_refuses(cuda):
+    args = _ssd_case(cuda, 1, 96, 2, 64, 16, 12)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunked_cuda(*(t.cpu() for t in args))
+    with pytest.raises(TypeError):
+        ssd_chunked_cuda(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="must divide"):
+        ssd_chunked_cuda(*args, chunk=64)  # 96 % 64
+    with pytest.raises(ValueError, match="dh and N"):
+        ssd_chunked_cuda(_randn((1, 96, 1, 128), 13, cuda), *args[1:3],
+                         args[3][:, :, :1].contiguous(), args[4][:1])

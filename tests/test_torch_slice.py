@@ -1,6 +1,7 @@
 """The slice as a whole: ``deploy`` + pipelined serving with int8 hops, the
-port (on ``device="cpu"``) against the JAX package (its jnp path), on the
-same requests and the same weights (the JAX package's draws, carried into
+port (on ``device="cpu"``) against the JAX package (its jnp path), for
+demo_transformer, demo_mlp and demo_ssm, on the same requests and the same
+weights (the JAX package's draws, carried into
 the port through ``params_for_version``).
 
 Pins: equal plans; outputs within ``INT8_MAX_REL_ERROR`` of max|ref| -- a
@@ -41,6 +42,15 @@ def jax_mlp_params(version, d=32, n_layers=8):
     return {"ws": np.asarray(ws)}
 
 
+def jax_ssm_params(version, d=24, n_layers=6, heads=2, state=4):
+    """The JAX package's ``demo_ssm`` weights (``core/model_zoo.py``)."""
+    key = jax.random.fold_in(jax.random.PRNGKey(version), 0x55D)
+    kb, kc, kd = jax.random.split(key, 3)
+    shapes = {"wb": (kb, (n_layers, d, state)), "wc": (kc, (n_layers, d, state)),
+              "wd": (kd, (n_layers, d, heads))}
+    return {n: np.asarray(jax.random.normal(k, s) * 0.3) for n, (k, s) in shapes.items()}
+
+
 def jax_transformer_params(version, d=32, n_layers=4, heads=4, kv_heads=2, mlp_mult=2):
     """The JAX package's ``demo_transformer`` weights (``core/model_zoo.py``)."""
     hd = d // heads
@@ -57,6 +67,7 @@ MODELS = {
     "demo_transformer": (jax_zoo.demo_transformer, model_zoo.demo_transformer,
                          jax_transformer_params, (256, 32)),
     "demo_mlp": (jax_zoo.demo_mlp, model_zoo.demo_mlp, jax_mlp_params, (32,)),
+    "demo_ssm": (jax_zoo.demo_ssm, model_zoo.demo_ssm, jax_ssm_params, (8, 24)),
 }
 
 
@@ -168,14 +179,47 @@ def test_unported_fields_rejected():
     base = dict(model=graph, cluster=ClusterSpec(n_nodes=4, capacity_bytes=1e9),
                 device="cpu")
     for field, value in (("serving", "sync"), ("replicas", 2), ("trace", True),
-                         ("admission_depth", 8), ("autoscale", True),
-                         ("arrival", object())):
+                         ("autoscale", True), ("arrival", object())):
         spec = DeploymentSpec(**base, **{field: value})
         assert [i.code for i in spec.validate()] == ["not_ported"], field
         with pytest.raises(InfeasibleSpecError):
             deploy(spec)
+    # ported since: open-loop admission (a tenant quota) and demo_ssm
+    assert DeploymentSpec(**base, admission_depth=8).validate() == ()
     ssm = DeploymentSpec(model="demo_ssm", cluster=base["cluster"], device="cpu")
-    assert [i.code for i in ssm.validate()] == ["not_ported"]
+    assert ssm.validate() == ()
+
+
+@pytest.mark.parametrize("shape", [(8, 24), (3, 8, 24)])
+def test_demo_ssm_executor_matches_jax(shape):
+    """The port's demo_ssm with the JAX package's weights (no codec).
+
+    Layer by layer, each fed the JAX package's input to that layer: 2e-6
+    absolute on tanh outputs in [-1, 1] (f32 projections and scan sums in
+    another order; the CPU shows <= 1e-6).  Through all six layers: 1e-4,
+    because each layer's residual scan amplifies an input difference ~2.5x
+    (the CPU shows ~3e-7 after layer 1 growing to ~4e-5 after layer 6)."""
+    jgraph, jex = jax_zoo.demo_ssm()
+    graph, ex = model_zoo.demo_ssm(device="cpu", params_for_version=jax_ssm_params)
+    assert repr(graph) == repr(jgraph)
+    x = np.random.default_rng(len(shape)).standard_normal(shape).astype(np.float32) * 0.5
+    for version in (0, 1):
+        jrun, run = jex(version), ex(version)
+        for i in range(6):
+            xi = np.asarray(jrun(0, i, jnp.asarray(x)))
+            got = run(i, i + 1, torch.from_numpy(xi))
+            np.testing.assert_allclose(got.numpy(), np.asarray(jrun(i, i + 1, jnp.asarray(xi))),
+                                       rtol=0, atol=2e-6)
+        got = run(0, 6, torch.from_numpy(x))
+        assert isinstance(got, torch.Tensor) and tuple(got.shape) == shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(jrun(0, 6, jnp.asarray(x))),
+                                   rtol=0, atol=1e-4)
+
+
+def test_demo_ssm_resolves_by_name():
+    graph, ex = DeploymentSpec(model="ssm", cluster=ClusterSpec(
+        n_nodes=4, capacity_bytes=1e9), device="cpu").resolve_model()
+    assert graph.name == "ssm6" and ex(0)(0, 6, torch.zeros(8, 24)).shape == (8, 24)
 
 
 def test_default_device_is_cuda():

@@ -1,0 +1,117 @@
+"""The port's chunked SSD scan (plain version, on the CPU) against the JAX
+package's ``ssd_ref`` and its Pallas kernel in interpret mode, on the same
+numpy inputs.
+
+Pins: atol = rtol = 1e-5, the JAX package's own kernel-vs-ref pin
+(``tests/test_kernels.py``).  The port sums the in-chunk cumsum in the order
+XLA takes on the CPU (``ref.chunk_cumsum``), so only the products' f32 order
+differs; another order alone would cost ~2x this pin at chunk 128.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssm_scan.ops import ssd_chunked as jax_ssd_chunked
+from repro.kernels.ssm_scan.ref import ssd_ref as jax_ssd_ref
+from repro_torch.kernels.ssm_scan import ssd_chunked
+from repro_torch.kernels.ssm_scan.kernel import ssd_chunked_cuda
+from repro_torch.kernels.ssm_scan.ref import chunk_cumsum, ssd_ref, ssd_ref_padded
+
+# (b, s, h, dh, n, chunk): the JAX package's two kernel-test dims, and
+# demo_ssm's default layer (S=8, one chunk)
+DIMS = [(2, 256, 4, 64, 32, 64), (1, 512, 8, 64, 64, 128), (1, 8, 2, 12, 4, 8)]
+
+
+def _inputs(b, s, h, dh, n, seed=0):
+    rng = np.random.default_rng(seed)
+    xs = rng.standard_normal((b, s, h, dh), dtype=np.float32) * 0.5
+    bm = rng.standard_normal((b, s, n), dtype=np.float32) * 0.5
+    cm = rng.standard_normal((b, s, n), dtype=np.float32) * 0.5
+    dt = np.asarray(jax.nn.softplus(rng.standard_normal((b, s, h), dtype=np.float32)))
+    a = -np.exp(rng.standard_normal((h,), dtype=np.float32) * 0.3)
+    return xs, bm, cm, dt, a
+
+
+def _torch(arrays):
+    return [torch.from_numpy(np.array(a, np.float32)) for a in arrays]
+
+
+def _jax(arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+@pytest.mark.parametrize("dims", DIMS)
+def test_plain_matches_jax_ref_and_pallas_interpret(dims):
+    *shape, chunk = dims
+    arrays = _inputs(*shape)
+    y, state = ssd_ref(*_torch(arrays), chunk=chunk)
+    y_ref, h_ref = jax_ssd_ref(*_jax(arrays), chunk=chunk)
+    y_pal = jax_ssd_chunked(*_jax(arrays), chunk=chunk, use_pallas=True, interpret=True)
+    assert isinstance(y, torch.Tensor) and y.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_pal), atol=1e-5, rtol=1e-5)
+    # the final state, against ssd_ref's hT
+    np.testing.assert_allclose(state.numpy(), np.asarray(h_ref), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dims", DIMS)
+def test_dispatch_on_cpu_is_the_plain_version(dims):
+    *shape, chunk = dims
+    args = _torch(_inputs(*shape, seed=1))
+    assert torch.equal(ssd_chunked(*args, chunk=chunk), ssd_ref(*args, chunk=chunk)[0])
+
+
+def test_chunk_invariance():
+    """The scan is chunk-invariant: 32 against 256 at the JAX package's 1e-4."""
+    args = _torch(_inputs(1, 256, 2, 32, 16, seed=2))
+    y1, _ = ssd_ref(*args, chunk=32)
+    y2, _ = ssd_ref(*args, chunk=256)
+    np.testing.assert_allclose(y1.numpy(), y2.numpy(), atol=1e-4, rtol=1e-4)
+
+
+def test_padded_plain_version_is_the_plain_version_chunked_anew():
+    """``ssd_ref_padded`` (the kernel's comparison on the card): exactly
+    ``ssd_ref`` where no padding is needed; a ragged S chunked at 64 agrees
+    with S chunked at 32 to the chunk-invariance pin."""
+    args = _torch(_inputs(2, 128, 3, 16, 8, seed=5))
+    assert torch.equal(ssd_ref_padded(*args, chunk=64), ssd_ref(*args, chunk=64)[0])
+    ragged = [t[:, :96].contiguous() for t in args[:4]] + [args[4]]
+    np.testing.assert_allclose(ssd_ref_padded(*ragged, chunk=64).numpy(),
+                               ssd_ref(*ragged, chunk=32)[0].numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("length", [5, 16, 40, 700])
+def test_chunk_cumsum_is_xlas_order(length):
+    """Bit-identical to ``jnp.cumsum`` on the CPU, padded blocks included."""
+    x = np.random.default_rng(length).standard_normal((2, length, 3)).astype(np.float32)
+    got = chunk_cumsum(torch.from_numpy(x), 1).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jnp.cumsum(jnp.asarray(x), axis=1)))
+
+
+def test_upper_triangle_does_not_leak_nan():
+    """Steep decays overflow exp(cum_t - cum_s) above the diagonal; the mask
+    is applied before exp, so nothing of it reaches y."""
+    xs, bm, cm, dt, _ = _torch(_inputs(1, 64, 2, 8, 4, seed=3))
+    y, state = ssd_ref(xs, bm, cm, dt * 200.0, torch.tensor([-5.0, -0.5]), chunk=64)
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+
+
+def test_indivisible_chunk_raises_the_jax_error():
+    args = _torch(_inputs(1, 96, 2, 8, 4, seed=4))
+    with pytest.raises(ValueError, match="seq 96 must divide chunk 64"):
+        ssd_chunked(*args, chunk=64)
+    with pytest.raises(ValueError, match="seq 96 must divide chunk 64"):
+        jax_ssd_chunked(*_jax(_inputs(1, 96, 2, 8, 4, seed=4)), chunk=64,
+                        use_pallas=True, interpret=True)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    args = _torch(_inputs(1, 8, 2, 12, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunked_cuda(*args, chunk=8)
+    assert ssd_chunked_cuda.launches == 0
