@@ -40,23 +40,40 @@ the first fault:
    the JAX package) with the same weights: outputs within
    INT8_MAX_REL_ERROR of max|ref|.
 9. times  -- each kernel (CUDA events, after warm-up, mean over launches)
-   beside its bound, its plain version's time and a library call's (none
-   computes these functions in one PyTorch call here). dequantize is timed
-   at demo_ssm's hop; the SSD scan's bound counts the fewest operations of
-   any chunking, and the kernel's own Q=64 count is printed beside it.
+   beside its bound, its plain version's time and yardsticks the port never
+   calls: for flash attention (global and windowed layers, each a row) the
+   one PyTorch call that computes it, FlexAttention under ``torch.compile``
+   with the softcap as ``score_mod`` and the masks as a ``block_mask``
+   (``library_ms``); for dequant_matmul the dequantize kernel followed by
+   ``torch.matmul`` (``unfused_ms``, interleaved best-of with the fused
+   kernel, and their ratio).  A yardstick that fails prints as such and
+   gives null.  The bound is the larger of bytes / 3.35 TB/s and FLOPs at
+   the cheapest tensor-core route of an f32-accurate product: 3 TF32 passes
+   (495 TFLOP/s) under split-TF32, or 2 bf16 passes (989 TFLOP/s) where one
+   operand is an exact int8 code and the other two bf16 pieces; the f32 FMA bound
+   stays beside it as ``bound_f32_fma_ms``.  dequantize is timed at
+   demo_ssm's hop; the SSD scan's bound counts the fewest operations of any
+   chunking, and the kernel's own Q=64 count is printed beside it.
 
 The last two lines are a JSON object of the kernels and the device line.
 Weights and requests are random, drawn from fixed seeds.
 
 ``python3 chip_smoke.py --profile`` also serves one more demo_transformer
 and one more demo_ssm microbatch under ``torch.profiler`` and prints the
-device time by kernel and the device's idle share over each serve.
+device time by kernel and the device's idle share over each serve; then the
+error budget of the split-precision kernels (each against its plain
+version, an f64 run and the model of its arithmetic in
+``repro_torch.kernels.split_precision``, whose difference from the kernel is
+the tensor cores' own accumulation) and a probe of ``mma.sync`` TF32
+throughput (independent m16n8k8 products from registers, no memory
+traffic): the ceiling of the route the tensor-core kernels take.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -65,10 +82,26 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+# torch.compile's caches (the FlexAttention yardstick) stay inside the checkout
+for _var, _sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+    os.environ.setdefault(_var, str(ROOT / "build" / _sub))
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM and f32 FMA
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM, f32 FMA and
+# the dense tensor cores at TF32 and bf16
 MEM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
+# seconds per FLOP of an f32-accurate product on the tensor cores, by the
+# cheapest route whose model holds the pin with half of it to spare
+# (tests/test_torch_split_precision.py).  Two f32 operands: split-TF32, 3
+# passes (two bf16 pieces each miss that margin; three take 6 bf16 passes,
+# the same time).  int8 codes times f32 w: the codes are exact in bf16 and
+# two bf16 pieces of w hold the pin, 2 bf16 passes; the kernel takes 2
+# split-TF32 passes (TF32_CODE_S_PER_FLOP), printed beside.
+F32_PRODUCT_S_PER_FLOP = 3 / TF32_FLOP_PER_S
+CODE_PRODUCT_S_PER_FLOP = 2 / BF16_FLOP_PER_S
+TF32_CODE_S_PER_FLOP = 2 / TF32_FLOP_PER_S
 TOL_FLASH = 2e-5
 TOL_DQMM = 1e-5
 
@@ -107,9 +140,127 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, flops / F32_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(nbytes: float, flops: float, s_per_flop: float = 0.0) -> tuple[float, str, float]:
+    """(least time in ms, what bounds it, the f32-FMA bound in ms): bytes
+    over HBM, against ``flops`` on the tensor cores at ``s_per_flop`` (0:
+    the work has no products, only f32 FMA-unit arithmetic)."""
+    t_bytes, t_fma = nbytes / MEM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    t_ops = flops * s_per_flop if s_per_flop else t_fma
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by, max(t_bytes, t_fma) * 1e3
+
+
+def best_interleaved_ms(fns, reps: int) -> list[float]:
+    """Best-of-``reps`` device time of each fn, one call of each in turn, so
+    drift hits every candidate alike (``benchmarks/kernel_path.py``'s way)."""
+    for fn in fns:
+        fn()
+    best = [math.inf] * len(fns)
+    for _ in range(reps):
+        for i, fn in enumerate(fns):
+            best[i] = min(best[i], cuda_time_ms(fn, 1, warmup=0))
+    return best
+
+
+MMA_PEAK_SRC = r"""
+#include <stdint.h>
+constexpr int CHAINS = 16;  // independent accumulators a warp
+__global__ void mma_peak(float* out, int iters) {
+  uint32_t a[4], b0 = __float_as_uint(0.5f), b1 = __float_as_uint(0.25f);
+  for (int i = 0; i < 4; ++i) a[i] = __float_as_uint(1.0f + (threadIdx.x + i) * 1e-3f) & 0xffffe000u;
+  float c[CHAINS][4] = {};
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int ch = 0; ch < CHAINS; ++ch)
+      asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+          : "+f"(c[ch][0]), "+f"(c[ch][1]), "+f"(c[ch][2]), "+f"(c[ch][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  float s = 0.0f;
+#pragma unroll
+  for (int ch = 0; ch < CHAINS; ++ch) s += c[ch][0] + c[ch][1] + c[ch][2] + c[ch][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int run_mma_peak(void* out, int blocks, int threads, int iters) {
+  mma_peak<<<blocks, threads>>>((float*)out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def phase_mma_peak(card: str) -> None:
+    """TF32 ``mma.sync`` m16n8k8 throughput from registers: 16 independent
+    accumulator chains a warp, 8 warps a block, 2 blocks an SM."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build
+
+    out_dir = ROOT / "build" / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, lib = out_dir / "mma_peak.cu", out_dir / "libmma_peak.so"
+    src.write_text(MMA_PEAK_SRC)
+    build = subprocess.run([_build._nvcc(), *_build.ARCH, "-O3", "-shared", "-Xcompiler", "-fPIC",
+                            str(src), "-o", str(lib)], capture_output=True, text=True, timeout=300)
+    if build.returncode != 0:
+        fail(f"mma probe build failed:\n{build.stdout}{build.stderr}")
+    fn = ctypes.CDLL(str(lib)).run_mma_peak
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, threads, iters = 2 * sms * 4, 256, 4096
+    out = torch.empty(blocks * threads, device="cuda")
+    ms = cuda_time_ms(lambda: _build.check(fn(out.data_ptr(), blocks, threads, iters), "mma_peak"), 3)
+    flops = blocks * threads // 32 * iters * 16 * 2 * 16 * 8 * 8
+    say("mma-peak", f"mma.sync m16n8k8 TF32 from registers: {flops / ms / 1e9:.1f} TFLOP/s "
+                    f"({flops / ms / 1e9 / (TF32_FLOP_PER_S / 1e12):.1%} of the dense TF32 peak); {card}")
+
+
+def phase_accuracy(card: str) -> None:
+    """Where the tensor-core kernels' error comes from: each against its
+    plain f32 version, an f64 run and the model of its split-precision
+    arithmetic (exact products, sums rounded to nearest).  kernel - model is
+    what the tensor cores' own accumulation adds."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.quantize.kernel import dequant_matmul_cuda
+    from repro_torch.kernels.quantize.ref import dequant_matmul_ref, quantize_ref
+    from repro_torch.kernels.split_precision import attention_emulated, dequant_matmul_emulated
+
+    def diff(a, b):
+        return (a.double() - b.double()).abs().max().item()
+
+    softcap = SERVED["softcap"]
+    for case, (s, std) in enumerate(((2048, 1.0), (8192, 1.0), (8192, 5.0))):
+        q, k, v = (randn((1, s, 2 if i == 0 else 1, 128), 40 + 3 * case + i, std)
+                   for i in range(3))
+        out = flash_attention_cuda(q, k, v, causal=True, window=0, softcap=softcap)
+        plain = attention_ref(q, k, v, causal=True, window=0, softcap=softcap)
+        model = attention_emulated(q, k, v, causal=True, window=0, softcap=softcap)
+        exact = attention_emulated(q.double(), k.double(), v.double(), causal=True, window=0,
+                                   softcap=softcap, matmul=torch.matmul)  # f64 throughout
+        say("accuracy", f"flash (1, {s}, 2/1, 128) std {std}, causal, softcap {softcap}: kernel "
+                        f"vs plain {diff(out, plain):.3g}, model vs plain {diff(model, plain):.3g}, "
+                        f"kernel vs model {diff(out, model):.3g}; vs f64: kernel "
+                        f"{diff(out, exact):.3g}, plain {diff(plain, exact):.3g}, model "
+                        f"{diff(model, exact):.3g}; {card}")
+        del q, k, v, out, plain, model, exact
+    qc, sc = quantize_ref(randn((4096, 4096), 45), 256)
+    w = randn((4096, 1024), 46, 0.3)
+    out = dequant_matmul_cuda(qc, sc, w, dtype=torch.float32, block=256)
+    plain = dequant_matmul_ref(qc, sc, w, dtype=torch.float32, block=256)
+    model = dequant_matmul_emulated(qc, sc, w, 256)
+    exact = (qc.double().reshape(4096, 16, 256) * sc.double()[..., None]).reshape(4096, 4096)
+    exact = exact @ w.double()
+    top = plain.abs().max().item()
+    say("accuracy", f"dequant_matmul (4096, 4096) x (4096, 1024) block 256, of max|plain|: kernel "
+                    f"vs plain {diff(out, plain) / top:.3g}, model vs plain "
+                    f"{diff(model, plain) / top:.3g}, kernel vs model {diff(out, model) / top:.3g}; "
+                    f"vs f64: kernel {diff(out, exact) / top:.3g}, plain "
+                    f"{diff(plain, exact) / top:.3g}; {card}")
+    torch.cuda.empty_cache()
 
 
 def phase_device():
@@ -134,10 +285,11 @@ def readable_kernel_name(mangled: str) -> str:
         name = mangled[m.end():m.end() + int(m.group())]
         if name.endswith("_kernel") and name.isidentifier():
             rest = mangled[m.end() + len(name):]
-            arg = re.match(r"I(?:Li(\d+)E|13__nv_bfloat16E|fE)", rest)
+            arg = re.match(r"I(?:Li(\d+)E|Lb([01])E|13__nv_bfloat16E|fE)", rest)
             if not arg:
                 return name
-            kind = arg.group(1) or ("bf16" if "bfloat16" in arg.group() else "f32")
+            kind = (arg.group(1) or {"1": "true", "0": "false"}.get(arg.group(2))
+                    or ("bf16" if "bfloat16" in arg.group() else "f32"))
             return f"{name}<{kind}>"
     return mangled
 
@@ -229,12 +381,12 @@ def phase_parity() -> dict:
                   f"{rel:.3g} of max|plain| (pin {TOL_DQMM})")
     del out, ref, w
 
-    qkv = randn((1, s, proj), 4)
-    fq = qkv[..., : heads * hd].reshape(1, s, heads, hd)
-    fk = qkv[..., heads * hd: (heads + kvh) * hd].reshape(1, s, kvh, hd)
-    fv = qkv[..., (heads + kvh) * hd:].reshape(1, s, kvh, hd)
+    qkv = randn((n, s, proj), 4)  # the microbatch the served path gives the kernel
+    fq = qkv[..., : heads * hd].reshape(n, s, heads, hd)
+    fk = qkv[..., heads * hd: (heads + kvh) * hd].reshape(n, s, kvh, hd)
+    fv = qkv[..., (heads + kvh) * hd:].reshape(n, s, kvh, hd)
     g = heads // kvh
-    worst = 0.0
+    worst = {"flash_attention_fwd": 0.0, "flash_attention_fwd_window": 0.0}
     for window, softcap in ((0, SERVED["softcap"]), (SERVED["window"], SERVED["softcap"]), (0, 0.0)):
         o = flash_attention_cuda(fq, fk, fv, causal=True, window=window, softcap=softcap)
         case = 0.0
@@ -243,13 +395,15 @@ def phase_parity() -> dict:
                                 fk[:, :, j:j + 1].contiguous(), fv[:, :, j:j + 1].contiguous(),
                                 causal=True, window=window, softcap=softcap)
             case = max(case, (o[:, :, j * g:(j + 1) * g] - ref).abs().max().item())
+            del ref
         if not case <= TOL_FLASH:
             fail(f"flash_attention window={window} softcap={softcap}: max-abs {case:.3g} > {TOL_FLASH}")
-        worst = max(worst, case)
-        say("parity", f"flash_attention (1, {s}, {heads}/{kvh}, {hd}) causal window={window} "
+        name = "flash_attention_fwd_window" if window else "flash_attention_fwd"
+        worst[name] = max(worst[name], case)
+        say("parity", f"flash_attention ({n}, {s}, {heads}/{kvh}, {hd}) causal window={window} "
                       f"softcap={softcap}: max-abs {case:.3g} (pin {TOL_FLASH})")
-    err["flash_attention_fwd"] = worst
-    del qkv, fq, fk, fv, o, ref, x, q, sc, q_ref, s_ref
+    err.update(worst)
+    del qkv, fq, fk, fv, o, x, q, sc, q_ref, s_ref
     torch.cuda.empty_cache()
     return err
 
@@ -651,6 +805,27 @@ def phase_reference():
                 (small_ssm["seq"], small_ssm["d"]))
 
 
+def flex_attention_yardstick(q, k, v, window: int, softcap: float):
+    """FlexAttention under ``torch.compile`` on (B, H, S, hd) copies of q, k,
+    v: the softcap as ``score_mod``, causal (and the window) as a
+    ``block_mask``, GQA by ``enable_gqa``.  Returns the compiled call."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        ok = q_idx >= kv_idx
+        return ok & (q_idx - kv_idx < window) if window > 0 else ok
+
+    s = q.shape[1]
+    block_mask = create_block_mask(mask_mod, B=None, H=None, Q_LEN=s, KV_LEN=s, device="cuda")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    fn = torch.compile(flex_attention, dynamic=False)
+    return lambda: fn(qt, kt, vt, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
+
+
 def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     import torch
 
@@ -671,16 +846,19 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     proj = (heads + 2 * kvh) * hd
     rows = []
 
-    def row(name, source, replaces, kernel, plain, reps, nbytes, flops, shape):
+    def row(name, source, replaces, kernel, plain, reps, nbytes, flops, s_per_flop, shape,
+            library=None, **extra):
         ms = cuda_time_ms(kernel, reps)
         plain_ms = cuda_time_ms(plain, max(1, reps // 2))
-        b_ms, b_by = bound_ms(nbytes, flops)
+        b_ms, b_by, fma_ms = bound_ms(nbytes, flops, s_per_flop)
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], "max_abs_err": errors[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None})
+                     "library_ms": library, "bound_f32_fma_ms": fma_ms, **extra})
+        lib = "none" if library is None else f"{library:.4f} ms"
         say("times", f"{name} {shape}: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-                     f"{b_ms / ms:.1%} of it), plain {plain_ms:.4f} ms, library none; {card}")
+                     f"{b_ms / ms:.1%} of it; f32 FMA bound {fma_ms:.4f} ms), plain "
+                     f"{plain_ms:.4f} ms, library {lib}; {card}")
 
     x = randn((n, s, d), 11)
     q, sc = quantize_int8_cuda(x, 256)
@@ -688,29 +866,39 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     row("quantize_int8", "src/repro_torch/kernels/csrc/quantize.cu",
         "src/repro/kernels/quantize/kernel.py:47",
         lambda: quantize_int8_cuda(x, 256), lambda: quantize_ref(x, 256), 50,
-        x.numel() * 4 + x.numel() + sc.numel() * 4, 5 * x.numel(), tuple(x.shape))
+        x.numel() * 4 + x.numel() + sc.numel() * 4, 5 * x.numel(), 0, tuple(x.shape))
 
     qs, ss = quantize_int8_cuda(randn((n, SSM["seq"], SSM["d"]), 12), 256)  # demo_ssm's hop
     row("dequantize_int8", "src/repro_torch/kernels/csrc/quantize.cu",
         "src/repro/kernels/quantize/kernel.py:84",
         lambda: dequantize_int8_cuda(qs, ss, torch.float32, 256),
         lambda: dequantize_ref(qs, ss, torch.float32, 256), 50,
-        qs.numel() * 5 + ss.numel() * 4, qs.numel(), tuple(qs.shape))
+        qs.numel() * 5 + ss.numel() * 4, qs.numel(), 0, tuple(qs.shape))
     del qs, ss
     qm, sm = quantize_int8_cuda(randn((n, d), 12), 256)  # demo_mlp's hop payload
     small = cuda_time_ms(lambda: dequantize_int8_cuda(qm, sm, torch.float32, 256), 200)
-    b_ms, b_by = bound_ms(qm.numel() * 5 + sm.numel() * 4, qm.numel())
+    b_ms, b_by, _ = bound_ms(qm.numel() * 5 + sm.numel() * 4, qm.numel())
     say("times", f"dequantize_int8 {tuple(qm.shape)} (demo_mlp's hop): {small:.4f} ms, "
                  f"bound {b_ms:.5f} ms ({b_by}); {card}")
 
     w = randn((d, proj), 13, 0.3)
     rows_n = n * s
+    fused = lambda: dequant_matmul_cuda(q, sc, w, torch.float32, 256)  # noqa: E731
+    unfused = lambda: torch.matmul(dequantize_int8_cuda(q, sc, torch.float32, 256), w)  # noqa: E731
+    fused_best, unfused_best = best_interleaved_ms([fused, unfused], 5)
+    dq_bytes = q.numel() + sc.numel() * 4 + w.numel() * 4 + rows_n * proj * 4
+    dq_flops = 2 * rows_n * d * proj + rows_n * d
+    tf32_ms = bound_ms(dq_bytes, dq_flops, TF32_CODE_S_PER_FLOP)[0]
     row("dequant_matmul", "src/repro_torch/kernels/csrc/quantize.cu",
-        "src/repro/kernels/quantize/kernel.py:122",
-        lambda: dequant_matmul_cuda(q, sc, w, torch.float32, 256),
-        lambda: dequant_matmul_ref(q, sc, w, torch.float32, 256), 5,
-        q.numel() + sc.numel() * 4 + w.numel() * 4 + rows_n * proj * 4,
-        2 * rows_n * d * proj + rows_n * d, (rows_n, d, proj))
+        "src/repro/kernels/quantize/kernel.py:122", fused,
+        lambda: dequant_matmul_ref(q, sc, w, torch.float32, 256), 5, dq_bytes, dq_flops,
+        CODE_PRODUCT_S_PER_FLOP, (rows_n, d, proj), unfused_ms=unfused_best,
+        bound_split_tf32_ms=tf32_ms)
+    say("times", f"dequant_matmul at its own route (2 split-TF32 passes): bound {tf32_ms:.4f} "
+                 f"ms, {tf32_ms / rows[-1]['ms']:.1%} of it; {card}")
+    say("times", f"dequant_matmul fused vs unfused (dequantize kernel + torch.matmul), "
+                 f"interleaved best of 5: {fused_best:.4f} / {unfused_best:.4f} ms, ratio "
+                 f"{fused_best / unfused_best:.3f}; {card}")
     del x, w
     torch.cuda.empty_cache()
 
@@ -734,17 +922,32 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
         return sum(min(i + 1, window) for i in range(s))
 
     io_bytes = (fq.numel() * 2 + fk.numel() * 2) * 4  # q, o, k, v read/written once
-    row("flash_attention_fwd", "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention/kernel.py:96",
-        lambda: flash_attention_cuda(fq, fk, fv, causal=True, window=0, softcap=softcap),
-        plain(0), 3, io_bytes, 4 * hd * live_pairs(0) * n * heads,
-        (n, s, heads, kvh, hd, "global causal, softcap"))
-    win = SERVED["window"]
-    ms = cuda_time_ms(lambda: flash_attention_cuda(fq, fk, fv, causal=True, window=win,
-                                                   softcap=softcap), 3)
-    b_ms, b_by = bound_ms(io_bytes, 4 * hd * live_pairs(win) * n * heads)
-    say("times", f"flash_attention_fwd window={win} (the served local layers): {ms:.4f} ms, "
-                 f"bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of it); {card}")
+    for name, window, label in (("flash_attention_fwd", 0, "global causal, softcap"),
+                                ("flash_attention_fwd_window", SERVED["window"],
+                                 f"causal, window {SERVED['window']}, softcap")):
+        kernel = lambda w=window: flash_attention_cuda(  # noqa: E731
+            fq, fk, fv, causal=True, window=w, softcap=softcap)
+        library, flex = None, None
+        t0 = time.perf_counter()
+        try:  # a yardstick only: its failure is reported, never timed
+            flex = flex_attention_yardstick(fq, fk, fv, window, softcap)
+            flex_out = flex().transpose(1, 2)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001
+            flex = None
+            say("times", f"{name}: FlexAttention yardstick FAILED ({type(e).__name__}: "
+                         f"{str(e)[:300]}); library_ms null")
+        if flex is not None:
+            diff = (flex_out - kernel()).abs().max().item()
+            library = cuda_time_ms(flex, 3)
+            say("times", f"{name}: FlexAttention compiled and run in "
+                         f"{time.perf_counter() - t0:.1f} s, max-abs {diff:.3g} from the kernel")
+            del flex, flex_out
+            torch.cuda.empty_cache()
+        row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:96", kernel, plain(window), 3,
+            io_bytes, 4 * hd * live_pairs(window) * n * heads, F32_PRODUCT_S_PER_FLOP,
+            (n, s, heads, kvh, hd, label), library=library)
     del qkv, fq, fk, fv
     torch.cuda.empty_cache()
 
@@ -758,13 +961,14 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     row("ssd_chunked", "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "src/repro/kernels/ssm_scan/kernel.py:66",
         lambda: ssd_chunked_cuda(*args, chunk=sq), lambda: ssd_ref(*args, chunk=q), 10,
-        nbytes, ssd_flops(n, sq, h, dh, ns, q_min),
+        nbytes, ssd_flops(n, sq, h, dh, ns, q_min), F32_PRODUCT_S_PER_FLOP,
         (n, sq, h, dh, ns, f"kernel and plain at Q={q}, bound at Q={q_min}"))
     flops_q = ssd_flops(n, sq, h, dh, ns, q)
-    b_ms, b_by = bound_ms(nbytes, flops_q)
+    b_ms, b_by, fma_ms = bound_ms(nbytes, flops_q, F32_PRODUCT_S_PER_FLOP)
     say("times", f"ssd_chunked at this design's Q={q}: {flops_q / 1e9:.2f} GFLOP, bound "
-                 f"{b_ms:.4f} ms ({b_by}, {b_ms / rows[-1]['ms']:.1%} of it), against "
-                 f"{ssd_flops(n, sq, h, dh, ns, q_min) / 1e9:.2f} GFLOP at Q={q_min}; {card}")
+                 f"{b_ms:.4f} ms ({b_by}, {b_ms / rows[-1]['ms']:.1%} of it; f32 FMA bound "
+                 f"{fma_ms:.4f} ms), against {ssd_flops(n, sq, h, dh, ns, q_min) / 1e9:.2f} "
+                 f"GFLOP at Q={q_min}; {card}")
     return rows
 
 
@@ -800,11 +1004,16 @@ def main() -> None:
     launches = {
         "quantize_int8": counts_tf["quantize_int8_cuda"],
         "dequant_matmul": counts_tf["dequant_matmul_cuda"],
-        "flash_attention_fwd": counts_tf["flash_attention_cuda"],
+        "flash_attention_fwd": (counts_tf["flash_attention_cuda"]
+                                - counts_tf["flash_attention_cuda_windowed"]),
+        "flash_attention_fwd_window": counts_tf["flash_attention_cuda_windowed"],
         "dequantize_int8": counts_ssm["dequantize_int8_cuda"],
         "ssd_chunked": counts_ssm["ssd_chunked_cuda"],
     }
     rows = phase_times(card, launches, errors)
+    if "--profile" in sys.argv[1:]:
+        phase_accuracy(card)
+        phase_mma_peak(card)
     for what, times in (("demo_transformer", per_request), ("demo_ssm", per_request_ssm)):
         say("serve", f"wall time per served request ({what}, 4 per microbatch): "
                      + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in times.items()))

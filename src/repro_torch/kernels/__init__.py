@@ -27,7 +27,12 @@ KERNEL_WRAPPERS = (
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    flash_attention_cuda.launches_windowed = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    """Launches of each wrapper, and of flash attention with a sliding
+    window apart (``flash_attention_cuda_windowed``, also in the total)."""
+    counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    counts["flash_attention_cuda_windowed"] = flash_attention_cuda.launches_windowed
+    return counts

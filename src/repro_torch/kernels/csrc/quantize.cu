@@ -19,19 +19,25 @@
 //   (XLA rewrites the division by a constant), the codes take an IEEE
 //   division (no --use_fast_math) and rintf, which rounds half to even like
 //   torch.round / jnp.round.
-// * dequant_matmul is bound by operations: 2*n*d*dout f32 FLOPs against
-//   n*d + d*dout*4 bytes.  It runs on the f32 FMA units (no TF32, so it
-//   holds the 1e-5 f32 pin).  The TPU kernel keeps all of w resident in
-//   VMEM; a Hopper block has 227 KB of shared memory, so this kernel tiles
-//   both dout and d: a 128x128 output tile per block, a 16-deep slice of d
-//   per step, 8x8 outputs per thread in registers (256 threads).  The int8 activation
-//   tile is widened and scaled while it is staged into shared memory, so
-//   the dequantized activation never reaches device memory.  Tensor cores
-//   (wgmma) and TMA pipelining are later work.
+// * dequant_matmul is bound by operations: 2*n*d*dout FLOPs against
+//   n*d + d*dout*4 bytes.  It runs on the TF32 tensor cores (mma.sync
+//   m16n8k8) and still holds the 1e-5 f32 pin: the int8 codes are exact in
+//   TF32, so only w is split into hi + lo (split_tf32.cuh) and each product
+//   costs two passes, FLOPs * 2 / 495 TFLOP/s at least.  The scale stays out
+//   of the A operand: each quantisation block's q_blk @ w_blk is summed in
+//   its own accumulator, then added times scale[row, blk] into the output
+//   accumulator, so the dequantized activation is never formed, not even in
+//   shared memory.  The TPU kernel keeps all of w resident in VMEM; here a
+//   block owns 128 x 128 outputs and streams 64-deep slices of codes and w
+//   through a 4-stage cp.async ring, so the next slices load while this one
+//   multiplies.  Blocks are rastered in groups of 8 row tiles, so w is read
+//   from device memory about once per 8 row tiles, not once per row tile.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "split_tf32.cuh"
 
 namespace {
 
@@ -94,90 +100,254 @@ __global__ void dequantize_int8_kernel(const int8_t* __restrict__ q,
   store_as<T>(out + i, (float)q[i] * s[row * nb + col / block]);
 }
 
-constexpr int MM_BM = 128, MM_BN = 128, MM_BK = 16;
-constexpr int MM_THREADS = 256;  // 16 x 16 threads, 8 x 8 outputs each
+// dequant_matmul on the tensor cores.  out (n, dout) f32 = sum over
+// quantisation blocks of scale[row, blk] * (q_blk @ w_blk): the codes go in
+// as exact TF32 A operands and w as hi + lo (two passes per product), each
+// block's sum is taken in its own accumulator and then scaled into the
+// output accumulator.  A block tile is 128 x 128 outputs, 8 warps of 64 x 32
+// (255 registers a thread, one block per SM); k advances 64 at a time
+// through a ring of 4 shared-memory stages (int8 codes, rows padded to 80
+// bytes; w, rows padded to 132 floats: fragment reads are free of bank
+// conflicts).  A tile inside one quantisation block (every tile when the
+// block is a multiple of 64, as on the served path) runs its 8 k steps with
+// no branch; a tile where a block ends steps through masked passes.  VEC
+// (d % 16 == 0, dout % 4 == 0, 16-byte aligned q and w) stages by
+// cp.async, 16 bytes per copy; otherwise each element is loaded and
+// zero-filled by hand.
+constexpr int MM_BM = 128, MM_BN = 128, MM_BK = 64, MM_STAGES = 4;
+constexpr int MM_THREADS = 256;
+constexpr int MM_AS = MM_BK + 16;  // bytes per staged code row
+constexpr int MM_WS = MM_BN + 4;   // floats per staged w row
+constexpr int MM_GROUP = 8;        // row tiles that share a band of w in L2
+constexpr size_t MM_A_BYTES = (size_t)MM_BM * MM_AS;
+constexpr size_t MM_W_BYTES = sizeof(float) * MM_BK * MM_WS;
+constexpr size_t MM_SMEM = MM_STAGES * (MM_A_BYTES + MM_W_BYTES);
 
-// out (n, dout) f32 = dequant(q (n, d), s (n, nb)) @ w (d, dout), f32 FMAs.
-// Thread (ty, tx) owns rows {ty*4 + i, 64 + ty*4 + i} and columns
-// {tx*4 + j, 64 + tx*4 + j}, i, j < 4: its float4 reads of a shared-memory
-// row then fall on 8 consecutive 16-byte words per quarter warp (no bank
-// conflicts).  ``vec`` (d % 16 == 0 and block % 8 == 0) stages the int8
-// tile as one 8-byte load per thread, 8 codes sharing one scale.
-__global__ void __launch_bounds__(MM_THREADS)
-dequant_matmul_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
-                      const float* __restrict__ w, float* __restrict__ out,
-                      long long n, int d, int dout, int block, int nb, int vec) {
-  __shared__ __align__(16) float As[MM_BK][MM_BM];  // dequantized tile, k-major
-  __shared__ __align__(16) float Bs[MM_BK][MM_BN];  // weight tile
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const long long row0 = (long long)blockIdx.y * MM_BM;
-  const int col0 = blockIdx.x * MM_BN;
-  float acc[8][8];
+template <bool VEC>
+__device__ __forceinline__ void dqmm_load_stage(int8_t* As, float* Ws,
+                                                const int8_t* __restrict__ q,
+                                                const float* __restrict__ w,
+                                                long long n, int d, int dout,
+                                                long long row0, int col0, int k0,
+                                                int tid) {
+  if (VEC) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < d; k0 += MM_BK) {
-    if (vec) {
-      const int r = tid / 2, kk0 = (tid % 2) * 8;
+    for (int i = 0; i < MM_BM * MM_BK / 16 / MM_THREADS; ++i) {
+      const int e = tid + i * MM_THREADS, r = e / (MM_BK / 16), c = (e % (MM_BK / 16)) * 16;
       const long long gr = row0 + r;
-      float v[8];
-      if (gr < n) {
-        const int gk = k0 + kk0;
-        const int2 raw = *reinterpret_cast<const int2*>(q + gr * d + gk);
-        const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
-        const float sc = s[gr * nb + gk / block];
+      const bool in = gr < n && k0 + c < d;
+      split_tf32::cp_async16(As + r * MM_AS + c, q + (in ? gr * d + k0 + c : 0), in ? 16 : 0);
+    }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = (float)c[j] * sc;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = 0.0f;
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) As[kk0 + j][r] = v[j];
-    } else {
-      for (int e = tid; e < MM_BM * MM_BK; e += MM_THREADS) {
-        const int r = e / MM_BK, kk = e % MM_BK;
-        const long long gr = row0 + r;
-        const int gk = k0 + kk;
-        float v = 0.0f;
-        if (gr < n && gk < d) v = (float)q[gr * d + gk] * s[gr * nb + gk / block];
-        As[kk][r] = v;
-      }
+    for (int i = 0; i < MM_BK * MM_BN / 4 / MM_THREADS; ++i) {
+      const int e = tid + i * MM_THREADS, r = e / (MM_BN / 4), c = (e % (MM_BN / 4)) * 4;
+      const int gk = k0 + r, gc = col0 + c;
+      const bool in = gk < d && gc < dout;
+      split_tf32::cp_async16(Ws + r * MM_WS + c, w + (in ? (long long)gk * dout + gc : 0),
+                             in ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < MM_BM * MM_BK; e += MM_THREADS) {
+      const int r = e / MM_BK, kk = e % MM_BK;
+      const long long gr = row0 + r;
+      const int gk = k0 + kk;
+      As[r * MM_AS + kk] = (gr < n && gk < d) ? q[gr * d + gk] : (int8_t)0;
     }
     for (int e = tid; e < MM_BK * MM_BN; e += MM_THREADS) {
-      const int kk = e / MM_BN, c = e % MM_BN;
-      const int gk = k0 + kk, gc = col0 + c;
-      Bs[kk][c] = (gk < d && gc < dout) ? w[(long long)gk * dout + gc] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < MM_BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long gr = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (gr >= n) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gc = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (gc < dout) out[gr * dout + gc] = acc[i][j];
+      const int r = e / MM_BN, c = e % MM_BN;
+      const int gk = k0 + r, gc = col0 + c;
+      Ws[r * MM_WS + c] = (gk < d && gc < dout) ? w[(long long)gk * dout + gc] : 0.0f;
     }
   }
+}
+
+constexpr int MM_MT = 4, MM_NT = 4;  // 16-row and 8-column fragments per warp
+
+// the A fragments of MM_MT row groups at k step k0: codes at k0 + 2t and
+// k0 + 2t + 1 of rows g and g + 8, a = (c(g, 2t), c(g + 8, 2t), c(g, 2t + 1),
+// c(g + 8, 2t + 1)), exact in TF32
+__device__ __forceinline__ void dqmm_codes(uint32_t (&a)[MM_MT][4], const int8_t* At, int k0) {
+#pragma unroll
+  for (int mt = 0; mt < MM_MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const uint32_t pair =
+          *reinterpret_cast<const uint16_t*>(At + (mt * 16 + half * 8) * MM_AS + k0);
+      a[mt][half] = __float_as_uint((float)(int8_t)(pair & 0xffu));
+      a[mt][half + 2] = __float_as_uint((float)(int8_t)(pair >> 8));
+    }
+}
+
+// acc += a (codes) . w over one 8-deep k step, w split into hi + lo
+__device__ __forceinline__ void dqmm_step(float (&acc)[MM_MT][MM_NT][4],
+                                          const uint32_t (&a)[MM_MT][4],
+                                          const float* wk) {
+#pragma unroll
+  for (int nt = 0; nt < MM_NT; ++nt) {
+    uint32_t bh0, bl0, bh1, bl1;
+    split_tf32::split(wk[nt * 8], bh0, bl0);
+    split_tf32::split(wk[MM_WS + nt * 8], bh1, bl1);
+#pragma unroll
+    for (int mt = 0; mt < MM_MT; ++mt) {
+      split_tf32::mma(acc[mt][nt], a[mt], bl0, bl1);
+      split_tf32::mma(acc[mt][nt], a[mt], bh0, bh1);
+    }
+  }
+}
+
+// out += scale[row, blk] * bacc and bacc = 0; rows beyond n read no scale
+__device__ __forceinline__ void dqmm_flush(float (&oacc)[MM_MT][MM_NT][4],
+                                           float (&bacc)[MM_MT][MM_NT][4],
+                                           const float* __restrict__ s, long long row,
+                                           long long n, int nb, int blk) {
+  if (blk >= nb) return;  // only zero-filled codes past d
+#pragma unroll
+  for (int mt = 0; mt < MM_MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long gr = row + mt * 16 + half * 8;
+      const float sc = gr < n ? s[gr * nb + blk] : 0.0f;
+#pragma unroll
+      for (int nt = 0; nt < MM_NT; ++nt)
+#pragma unroll
+        for (int e = 2 * half; e < 2 * half + 2; ++e) {
+          oacc[mt][nt][e] = fmaf(sc, bacc[mt][nt][e], oacc[mt][nt][e]);
+          bacc[mt][nt][e] = 0.0f;
+        }
+    }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(MM_THREADS, 1)
+dequant_matmul_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
+                      const float* __restrict__ w, float* __restrict__ out,
+                      long long n, int d, int dout, int block, int nb) {
+  extern __shared__ __align__(16) unsigned char mm_smem[];
+  int8_t* As = reinterpret_cast<int8_t*>(mm_smem);
+  float* Ws = reinterpret_cast<float*>(mm_smem + MM_STAGES * MM_A_BYTES);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
+
+  // grouped raster: MM_GROUP row tiles walk the column tiles together
+  const int num_m = (int)((n + MM_BM - 1) / MM_BM), num_n = (dout + MM_BN - 1) / MM_BN;
+  const int per_group = MM_GROUP * num_n, first_m = (blockIdx.x / per_group) * MM_GROUP;
+  const int gsize = min(num_m - first_m, MM_GROUP);
+  const int tile_m = first_m + (blockIdx.x % per_group) % gsize;
+  const int tile_n = (blockIdx.x % per_group) / gsize;
+  const long long row0 = (long long)tile_m * MM_BM;
+  const int col0 = tile_n * MM_BN;
+
+  float bacc[MM_MT][MM_NT][4], oacc[MM_MT][MM_NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MM_MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < MM_NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bacc[mt][nt][e] = oacc[mt][nt][e] = 0.0f;
+
+  const long long row_w = row0 + wm * 64 + g;  // this lane's first row
+
+  const int KT = (d + MM_BK - 1) / MM_BK;
+#pragma unroll
+  for (int st = 0; st < MM_STAGES - 1; ++st) {
+    if (st < KT)
+      dqmm_load_stage<VEC>(As + st * MM_A_BYTES, Ws + st * MM_BK * MM_WS, q, w, n, d, dout,
+                           row0, col0, st * MM_BK, tid);
+    split_tf32::cp_async_commit();
+  }
+
+  int blk = 0, next_flush = block;  // k where the current quantisation block ends
+  for (int kt = 0; kt < KT; ++kt) {
+    split_tf32::cp_async_wait<MM_STAGES - 2>();  // tile kt has landed
+    __syncthreads();  // ... for every thread, and tile kt - 1 is consumed
+    const int ahead = kt + MM_STAGES - 1;
+    if (ahead < KT) {
+      const int st = ahead % MM_STAGES;
+      dqmm_load_stage<VEC>(As + st * MM_A_BYTES, Ws + st * MM_BK * MM_WS, q, w, n, d, dout,
+                           row0, col0, ahead * MM_BK, tid);
+    }
+    split_tf32::cp_async_commit();
+
+    const int st = kt % MM_STAGES;
+    const int8_t* At = As + st * MM_A_BYTES + (wm * 64 + g) * MM_AS + 2 * t;
+    const float* Wt = Ws + st * MM_BK * MM_WS + 2 * t * MM_WS + wn * 32 + g;
+    const int k_tile = kt * MM_BK;
+    if (next_flush >= k_tile + MM_BK) {  // no quantisation block ends inside the tile
+#pragma unroll
+      for (int k0 = 0; k0 < MM_BK; k0 += 8) {
+        uint32_t a[MM_MT][4];
+        dqmm_codes(a, At, k0);
+        dqmm_step(bacc, a, Wt + k0 * MM_WS);
+      }
+      if (next_flush == k_tile + MM_BK) {
+        dqmm_flush(oacc, bacc, s, row_w, n, nb, blk++);
+        next_flush += block;
+      }
+      continue;
+    }
+    // a block ends inside the tile: one masked pass per block a step touches
+#pragma unroll 1
+    for (int k0 = 0; k0 < MM_BK; k0 += 8) {
+      uint32_t a[MM_MT][4];
+      dqmm_codes(a, At, k0);
+      const int kg = k_tile + k0;
+      for (int lo = kg; lo < kg + 8;) {
+        const int hi = min(next_flush, kg + 8);
+        const bool keep0 = kg + 2 * t >= lo && kg + 2 * t < hi;
+        const bool keep1 = kg + 2 * t + 1 >= lo && kg + 2 * t + 1 < hi;
+        uint32_t am[MM_MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MM_MT; ++mt) {
+          am[mt][0] = keep0 ? a[mt][0] : 0u;
+          am[mt][1] = keep0 ? a[mt][1] : 0u;
+          am[mt][2] = keep1 ? a[mt][2] : 0u;
+          am[mt][3] = keep1 ? a[mt][3] : 0u;
+        }
+        dqmm_step(bacc, am, Wt + k0 * MM_WS);
+        if (hi == next_flush) {
+          dqmm_flush(oacc, bacc, s, row_w, n, nb, blk++);
+          next_flush += block;
+        }
+        lo = hi;
+      }
+    }
+  }
+  dqmm_flush(oacc, bacc, s, row_w, n, nb, blk);  // the last block, ragged or cut by d
+
+#pragma unroll
+  for (int mt = 0; mt < MM_MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long gr = row0 + wm * 64 + mt * 16 + g + half * 8;
+      if (gr >= n) continue;
+#pragma unroll
+      for (int nt = 0; nt < MM_NT; ++nt) {
+        const int gc = col0 + wn * 32 + nt * 8 + 2 * t;
+        float* dst = out + gr * dout + gc;
+        if ((dout & 1) == 0 && gc + 1 < dout) {
+          *reinterpret_cast<float2*>(dst) =
+              make_float2(oacc[mt][nt][2 * half], oacc[mt][nt][2 * half + 1]);
+        } else {
+          if (gc < dout) dst[0] = oacc[mt][nt][2 * half];
+          if (gc + 1 < dout) dst[1] = oacc[mt][nt][2 * half + 1];
+        }
+      }
+    }
+}
+
+template <bool VEC>
+int launch_dequant_matmul(const int8_t* q, const float* s, const float* w, float* out,
+                          long long n, int d, int dout, int block, int nb,
+                          cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(dequant_matmul_kernel<VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)MM_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = ((n + MM_BM - 1) / MM_BM) * ((dout + MM_BN - 1) / MM_BN);
+  dequant_matmul_kernel<VEC><<<(unsigned)tiles, MM_THREADS, MM_SMEM, st>>>(
+      q, s, w, out, n, d, dout, block, nb);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -219,13 +389,14 @@ int seifer_dequantize_int8(const void* q, const void* s, void* out,
 int seifer_dequant_matmul(const void* q, const void* s, const void* w, void* out,
                           long long n, int d, int dout, int block, int nb,
                           void* stream) {
-  const dim3 grid((unsigned)((dout + MM_BN - 1) / MM_BN),
-                  (unsigned)((n + MM_BM - 1) / MM_BM));
-  const int vec = (d % 16 == 0) && (block % 8 == 0);
-  dequant_matmul_kernel<<<grid, MM_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)q, (const float*)s, (const float*)w, (float*)out, n, d,
-      dout, block, nb, vec);
-  return (int)cudaGetLastError();
+  const bool vec = d % 16 == 0 && dout % 4 == 0 && (uintptr_t)q % 16 == 0 &&
+                   (uintptr_t)w % 16 == 0;
+  const int8_t* qi = (const int8_t*)q;
+  const float *sf = (const float*)s, *wf = (const float*)w;
+  float* of = (float*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  return vec ? launch_dequant_matmul<true>(qi, sf, wf, of, n, d, dout, block, nb, st)
+             : launch_dequant_matmul<false>(qi, sf, wf, of, n, d, dout, block, nb, st);
 }
 
 }  // extern "C"

@@ -2,10 +2,13 @@
 
 Checks what the kernel takes and raises on anything else: float32 CUDA
 tensors, self-attention (``Sq == Skv``), ``hd`` in {64, 128, 256},
-``H`` a multiple of ``KH``, and rows whose (heads, hd) block is packed --
-the batch and sequence strides may be anything, so the q/k/v slices of a
-fused projection go in without a copy.  The output is a new contiguous
-(B, S, H, hd) tensor; the launch is counted in ``launches``.
+``H`` a multiple of ``KH``, and rows whose (heads, hd) block is packed and
+16-byte aligned (the kernel stages rows by 16-byte ``cp.async`` copies) --
+the batch and sequence strides may be anything else that keeps rows
+aligned, so the q/k/v slices of a fused projection go in without a copy.
+The output is a new contiguous (B, S, H, hd) tensor; the launch is counted
+in ``launches``, and a launch with a sliding window also in
+``launches_windowed``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ def _require_rows(t: torch.Tensor, name: str) -> None:
     if t.stride(3) != 1 or t.stride(2) != t.shape[3]:
         raise ValueError(f"{name}: each row's (heads, hd) block must be packed, "
                          f"got strides {t.stride()}")
+    if t.data_ptr() % 16 or t.stride(0) % 4 or t.stride(1) % 4:
+        raise ValueError(f"{name}: rows must start on 16-byte boundaries, got "
+                         f"address {t.data_ptr():#x} and strides {t.stride()}")
 
 
 def flash_attention_cuda(
@@ -49,8 +55,9 @@ def flash_attention_cuda(
         raise ValueError(f"kernel takes hd in {HEAD_DIMS}, got {hd}")
     if kh < 1 or h % kh:
         raise ValueError(f"heads {h} must be a multiple of kv heads {kh}")
-    if h > 65535 or b > 65535:
-        raise ValueError("kernel grid takes at most 65535 heads and batch rows")
+    if -(-s // 64) > 65535 or b * h >= 2**31:
+        raise ValueError(f"kernel grid takes S <= {65535 * 64} and B*H < 2**31, "
+                         f"got S={s}, B*H={b * h}")
     o = torch.empty((b, s, h, hd), dtype=torch.float32, device=q.device)
     if b and s:
         err = _build.lib().seifer_flash_attention_fwd(
@@ -62,7 +69,10 @@ def flash_attention_cuda(
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(err, "flash_attention_fwd")
         flash_attention_cuda.launches += 1
+        if window > 0:
+            flash_attention_cuda.launches_windowed += 1
     return o
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_windowed = 0

@@ -94,8 +94,9 @@ def dequant_matmul_cuda(
     if w.dim() != 2 or w.shape[0] != d:
         raise ValueError(f"w must be ({d}, dout), got {tuple(w.shape)}")
     dout = w.shape[1]
-    if -(-n // 128) > 65535:
-        raise ValueError(f"dequant_matmul kernel takes at most {65535 * 128} rows, got {n}")
+    if -(-n // 128) * -(-dout // 128) >= 2**31:
+        raise ValueError(f"dequant_matmul kernel takes fewer than 2**31 output tiles "
+                         f"of 128 x 128, got ({n}, {dout})")
     out = torch.empty((*q.shape[:-1], dout), dtype=torch.float32, device=q.device)
     if n and dout:
         err = _build.lib().seifer_dequant_matmul(

@@ -97,6 +97,27 @@ def test_dequant_matmul_matches_plain(cuda, n, d, dout, block):
     assert rel <= 1e-5
 
 
+@pytest.mark.parametrize("n,d,dout,block,dtype", [
+    (1, 4096, 512, 256, torch.float32),    # one row
+    (7, 300, 136, 128, torch.float32),     # ragged d: the last block has 44 codes
+    (64, 272, 264, 256, torch.float32),    # d not a multiple of the 64-deep k tile (MM_BK)
+    (130, 200, 96, 128, torch.float32),    # d % 16 != 0: staged without cp.async
+    (33, 520, 130, 100, torch.float32),    # blocks that end inside an 8-deep k step
+    (256, 1024, 384, 256, torch.bfloat16),  # bf16 output, cast after the f32 sum
+])
+def test_dequant_matmul_edges(cuda, n, d, dout, block, dtype):
+    """The tensor-core receive at its ragged and odd edges, against the plain
+    version at the same 1e-5 of max|plain| (bf16: one bf16 rounding more)."""
+    q, s = quantize_ref(_randn((n, d), 14, cuda), block)
+    w = _randn((d, dout), 15, cuda, scale=0.3)
+    out = dequant_matmul_cuda(q, s, w, dtype=dtype, block=block)
+    ref = dequant_matmul_ref(q, s, w, dtype=torch.float32, block=block)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (n, dout)
+    rel = (out.float() - ref).abs().max().item() / ref.abs().max().item()
+    assert rel <= (1e-5 if dtype == torch.float32 else 2.0**-8 + 1e-5)
+
+
 def _flash_case(cuda, b, s, h, kh, hd, seed):
     q = _randn((b, s, h, hd), seed, cuda)
     k = _randn((b, s, kh, hd), seed + 1, cuda)
@@ -131,11 +152,90 @@ def test_flash_takes_strided_projection_slices(cuda):
     assert (out - ref).abs().max().item() <= 2e-5
 
 
+@pytest.mark.parametrize("s,g,hd,causal,window,softcap", [
+    (1, 1, 64, True, 0, 50.0),        # one query: a tile of 63 masked rows
+    (7, 2, 128, True, 0, 50.0),       # S below one 8-key fragment
+    (65, 4, 64, True, 17, 50.0),      # one key past two 32-key tiles (BK); window below a tile
+    (65, 2, 256, False, 0, 0.0),      # hd 256, non-causal
+    (1000, 2, 128, True, 32, 50.0),   # window equal to a 32-key tile
+    (1000, 2, 128, True, 64, 50.0),   # window of two tiles
+    (1000, 4, 64, False, 1, 50.0),    # non-causal window of one key
+    (1000, 1, 256, True, 0, 50.0),
+    (129, 2, 128, False, 64, 0.0),
+    (200, 4, 256, True, 130, 50.0),   # a window that spans three tiles
+])
+def test_flash_crosses_fragment_and_pipeline_edges(cuda, s, g, hd, causal, window, softcap):
+    """S off the 8-key fragments, the 32-key kv tiles and the 128-query
+    (64 at hd 256) query tiles, windows below, at and above a kv tile,
+    G = 1, 2, 4 and hd 64/128/256: within 2e-5 of the plain version, the f32
+    pin."""
+    q, k, v = _flash_case(cuda, 2, s, 2 * g, 2, hd, 20)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)
+    ref = attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("s,hd", [(1000, 128), (77, 256)])
+def test_flash_strided_slices_ragged(cuda, s, hd):
+    """Slices of a fused q|k|v projection at a ragged S: rows at the
+    projection's stride, staged by cp.async straight from the slices."""
+    b, h, kh = 2, 4, 2
+    qkv = _randn((b, s, (h + 2 * kh) * hd), 21, cuda)
+    q = qkv[..., : h * hd].reshape(b, s, h, hd)
+    k = qkv[..., h * hd:(h + kh) * hd].reshape(b, s, kh, hd)
+    v = qkv[..., (h + kh) * hd:].reshape(b, s, kh, hd)
+    out = flash_attention_cuda(q, k, v, causal=True, window=100, softcap=50.0)
+    ref = attention_ref(q.contiguous(), k.contiguous(), v.contiguous(),
+                        causal=True, window=100, softcap=50.0)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 2e-5
+
+
+def _attention_f64(q, k, v, softcap):
+    """Causal soft-capped attention in f64 throughout (``attention_ref``
+    computes in f32 whatever its inputs)."""
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
+    qg = q.double().reshape(b, s, kh, h // kh, hd) * hd**-0.5
+    logits = torch.einsum("bqhgk,bshk->bhgqs", qg, k.double())
+    logits = softcap * torch.tanh(logits / softcap)
+    pos = torch.arange(s, device=q.device)
+    logits = logits.masked_fill(pos[:, None] < pos[None, :], float("-inf"))
+    o = torch.einsum("bhgqs,bshk->bqhgk", torch.softmax(logits, -1), v.double())
+    return o.reshape(b, s, h, hd)
+
+
+@pytest.mark.parametrize("s", [2048, 8192])
+def test_flash_large_scale_as_accurate_as_f32(cuda, s):
+    """std 5, softcap 50: here f32 itself is ~5e-5 from f64, over the 2e-5
+    pin, so the kernel is held to an f64 run at twice the plain f32
+    version's own error (the split-TF32 products must be no less accurate
+    than f32 products, whatever order the sums take), also at the served
+    S, where the kernel's sum over keys is longest."""
+    q = _randn((1, s, 4, 128), 22, cuda, scale=5.0)
+    k = _randn((1, s, 2, 128), 23, cuda, scale=5.0)
+    v = _randn((1, s, 2, 128), 24, cuda, scale=5.0)
+    out = flash_attention_cuda(q, k, v, causal=True, window=0, softcap=50.0)
+    plain = attention_ref(q, k, v, causal=True, softcap=50.0)
+    exact = _attention_f64(q, k, v, 50.0)
+    torch.cuda.synchronize()
+    assert (out.double() - exact).abs().max().item() <= 2 * (plain.double() - exact).abs().max().item()
+
+
+def test_flash_rejects_misaligned_rows(cuda):
+    buf = _randn((1 + 64 * 2 * 64,), 25, cuda)
+    q = buf[1:].reshape(1, 64, 2, 64)  # rows 4 bytes off a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_cuda(q, q, q)
+
+
 @pytest.mark.parametrize("window", [0, 4096])
 def test_flash_main_path_shape(cuda, window):
-    """S=8192, H=32, KH=16, hd=128: the plain version one kv-head group at a
-    time (the full logits of all heads would take 8.6 GB each)."""
-    b, s, h, kh, hd = 1, 8192, 32, 16, 128
+    """B=4 (the served microbatch), S=8192, H=32, KH=16, hd=128: the plain
+    version one kv-head group at a time (the full logits of all heads would
+    take 34 GB)."""
+    b, s, h, kh, hd = 4, 8192, 32, 16, 128
     q, k, v = _flash_case(cuda, b, s, h, kh, hd, 7)
     out = flash_attention_cuda(q, k, v, causal=True, window=window, softcap=50.0)
     g = h // kh
