@@ -17,9 +17,10 @@ the first fault:
    (dequantize also at demo_mlp's), dequant_matmul within 1e-5 of max|plain|, flash
    attention within 2e-5 max-abs (f32) for the global and windowed,
    soft-capped layers and a plain causal one; the SSD scan within 1e-5 of
-   max|plain| (the plain version chunked as the kernel chunks, at 64) at
-   the served shape, on demo_ssm's layer-0 activations, ragged (S=96) and
-   at S=8.
+   max|plain| (``ssd_ref_segmented``: the plain version chunked at 64 and
+   cut into segments as the kernel cuts them) at the served shape, on
+   demo_ssm's layer-0 activations, ragged (S=96), at S=8 and at a forced
+   P=5 over a ragged S=1000 with a slow decay.
 4. serve demo_transformer at gemma2-27b attention width (d=4096, 32 heads,
    16 kv heads, hd=128, MLP 8x, softcap 50, window 4096, S=8192, 4 layers)
    through ``deploy`` with int8 hops: 4 requests, a ``NodeFailed`` on a
@@ -53,7 +54,9 @@ the first fault:
    operand is an exact int8 code and the other two bf16 pieces; the f32 FMA bound
    stays beside it as ``bound_f32_fma_ms``.  dequantize is timed at
    demo_ssm's hop; the SSD scan's bound counts the fewest operations of any
-   chunking, and the kernel's own Q=64 count is printed beside it.
+   chunking, and the kernel's own Q=64 count is printed beside it, with
+   its segments P, the FLOPs and bytes of the segmented design (state pass
+   and folds counted) and its time unsegmented (P=1) against P.
 
 The last two lines are a JSON object of the kernels and the device line.
 Weights and requests are random, drawn from fixed seeds.
@@ -64,7 +67,8 @@ device time by kernel and the device's idle share over each serve; then the
 error budget of the split-precision kernels (each against its plain
 version, an f64 run and the model of its arithmetic in
 ``repro_torch.kernels.split_precision``, whose difference from the kernel is
-the tensor cores' own accumulation) and a probe of ``mma.sync`` TF32
+the tensor cores' own accumulation; flash, dequant_matmul and the SSD scan
+at its served shape) and a probe of ``mma.sync`` TF32
 throughput (independent m16n8k8 products from registers, no memory
 traffic): the ceiling of the route the tensor-core kernels take.
 """
@@ -227,7 +231,17 @@ def phase_accuracy(card: str) -> None:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.quantize.kernel import dequant_matmul_cuda
     from repro_torch.kernels.quantize.ref import dequant_matmul_ref, quantize_ref
-    from repro_torch.kernels.split_precision import attention_emulated, dequant_matmul_emulated
+    from repro_torch.kernels.split_precision import (
+        attention_emulated,
+        dequant_matmul_emulated,
+        ssd_emulated,
+    )
+    from repro_torch.kernels.ssm_scan.kernel import (
+        KERNEL_CHUNK,
+        default_segments,
+        ssd_chunked_cuda,
+    )
+    from repro_torch.kernels.ssm_scan.ref import ssd_ref_padded
 
     def diff(a, b):
         return (a.double() - b.double()).abs().max().item()
@@ -260,6 +274,23 @@ def phase_accuracy(card: str) -> None:
                     f"{diff(model, plain) / top:.3g}, kernel vs model {diff(out, model) / top:.3g}; "
                     f"vs f64: kernel {diff(out, exact) / top:.3g}, plain "
                     f"{diff(plain, exact) / top:.3g}; {card}")
+    del qc, sc, w, out, plain, model, exact
+
+    # the SSD scan at the served shape: the model is one segment, so the
+    # kernel is held to it at one segment too, and at its own P to f64
+    h, dh, n = SSM["heads"], SSM["d"] // SSM["heads"], SSM["state"]
+    args = ssd_case(MICROBATCH, SSM["seq"], h, dh, n, 20)
+    own = ssd_chunked_cuda(*args, chunk=SSM["seq"])
+    one = ssd_chunked_cuda(*args, chunk=SSM["seq"], segments=1)
+    plain = ssd_ref_padded(*args, chunk=KERNEL_CHUNK)
+    model = ssd_emulated(*args, chunk=KERNEL_CHUNK)
+    exact = ssd_ref_padded(*(t.double() for t in args), chunk=KERNEL_CHUNK)
+    top = plain.abs().max().item()
+    say("accuracy", f"ssd_chunked {tuple(args[0].shape)} N={n}, of max|plain|: kernel (P=1) vs "
+                    f"model {diff(one, model) / top:.3g}, model vs plain {diff(model, plain) / top:.3g}; "
+                    f"vs f64: kernel at P={default_segments(MICROBATCH, SSM['seq'], h, own.device)} "
+                    f"{diff(own, exact) / top:.3g}, kernel (P=1) {diff(one, exact) / top:.3g}, "
+                    f"model {diff(model, exact) / top:.3g}, plain {diff(plain, exact) / top:.3g}; {card}")
     torch.cuda.empty_cache()
 
 
@@ -447,34 +478,45 @@ def phase_parity_ssd() -> float:
     """The SSD kernel vs its plain version; returns the worst max-abs."""
     import torch
 
-    from repro_torch.kernels.ssm_scan.kernel import KERNEL_CHUNK, ssd_chunked_cuda
-    from repro_torch.kernels.ssm_scan.ref import ssd_ref, ssd_ref_padded
+    from repro_torch.kernels.ssm_scan.kernel import (
+        KERNEL_CHUNK,
+        default_segments,
+        ssd_chunked_cuda,
+    )
+    from repro_torch.kernels.ssm_scan.ref import ssd_ref_padded, ssd_ref_segmented
 
     h, dh, n = SSM["heads"], SSM["d"] // SSM["heads"], SSM["state"]
+    slow = ssd_case(2, 1000, h, dh, n, 50)
+    slow = slow[:3] + (slow[3] * 0.01, slow[4])  # a state that reaches the later segments
     cases = (
-        ("served shape", ssd_case(MICROBATCH, SSM["seq"], h, dh, n, 20), SSM["seq"]),
-        ("demo_ssm layer-0 activations", ssm_layer0_inputs(600), SSM["seq"]),
-        ("ragged S=96", ssd_case(2, 96, h, dh, n, 30), 32),
-        ("S=8 (demo_ssm's default)", ssd_case(2, 8, 2, 12, 4, 40), 8),
+        ("served shape", ssd_case(MICROBATCH, SSM["seq"], h, dh, n, 20), SSM["seq"], None),
+        ("demo_ssm layer-0 activations", ssm_layer0_inputs(600), SSM["seq"], None),
+        ("ragged S=96", ssd_case(2, 96, h, dh, n, 30), 32, None),
+        ("S=8 (demo_ssm's default)", ssd_case(2, 8, 2, 12, 4, 40), 8, None),
+        ("forced P=5, ragged S=1000, dt / 100", slow, 1000, 5),
     )
     worst = 0.0
-    for label, args, chunk in cases:
-        out = ssd_chunked_cuda(*args, chunk=chunk)
-        ref = ssd_ref_padded(*args, chunk=KERNEL_CHUNK)
+    for label, args, chunk, forced in cases:
+        b, s = args[0].shape[:2]
+        p = forced or default_segments(b, s, args[0].shape[2], args[0].device)
+        out = ssd_chunked_cuda(*args, chunk=chunk, segments=p)
+        ref = ssd_ref_segmented(*args, chunk=KERNEL_CHUNK, segments=min(p, -(-s // KERNEL_CHUNK)))
         torch.cuda.synchronize()
         abs_err = (out - ref).abs().max().item()
         rel = abs_err / ref.abs().max().item()
         shape = tuple(args[0].shape) + (args[1].shape[-1],)
         if not (rel <= TOL_SSD and bool(torch.isfinite(out).all())):
-            fail(f"ssd_chunked {label} {shape}: {rel:.3g} of max|plain| > {TOL_SSD}")
+            fail(f"ssd_chunked {label} {shape} P={p}: {rel:.3g} of max|plain| > {TOL_SSD}")
         worst = max(worst, abs_err)
-        msg = (f"ssd_chunked {label} (B, S, H, dh, N)={shape} chunk={chunk}: max-abs "
-               f"{abs_err:.3g}, {rel:.3g} of max|plain| (pin {TOL_SSD})")
+        msg = (f"ssd_chunked {label} (B, S, H, dh, N)={shape} chunk={chunk} segments={p}: "
+               f"max-abs {abs_err:.3g}, {rel:.3g} of max|plain| (pin {TOL_SSD})")
         if label == "served shape":  # both against an f64 run of the same scan
-            exact = ssd_ref(*(t.double() for t in args), chunk=KERNEL_CHUNK)[0]
-            msg += (f"; vs f64: kernel {(out - exact).abs().max().item():.3g}, "
+            unseg = ssd_ref_padded(*args, chunk=KERNEL_CHUNK)
+            exact = ssd_ref_padded(*(t.double() for t in args), chunk=KERNEL_CHUNK)
+            msg += (f"; vs the unsegmented plain version {(out - unseg).abs().max().item():.3g}"
+                    f"; vs f64: kernel {(out - exact).abs().max().item():.3g}, "
                     f"plain {(ref - exact).abs().max().item():.3g}")
-            del exact
+            del exact, unseg
         say("parity", msg)
         del out, ref, args
     torch.cuda.empty_cache()
@@ -837,7 +879,11 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
         quantize_int8_cuda,
     )
     from repro_torch.kernels.quantize.ref import dequant_matmul_ref, dequantize_ref, quantize_ref
-    from repro_torch.kernels.ssm_scan.kernel import KERNEL_CHUNK, ssd_chunked_cuda
+    from repro_torch.kernels.ssm_scan.kernel import (
+        KERNEL_CHUNK,
+        default_segments,
+        ssd_chunked_cuda,
+    )
     from repro_torch.kernels.ssm_scan.ref import ssd_ref
 
     d, s, n = SERVED["d"], SERVED["seq"], MICROBATCH
@@ -958,17 +1004,31 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     # the bound counts the fewest operations of any chunking of the same scan
     q_min = min((2 ** k for k in range(sq.bit_length())),
                 key=lambda c: ssd_flops(n, sq, h, dh, ns, c))
+    p = default_segments(n, sq, h, args[0].device)
     row("ssd_chunked", "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "src/repro/kernels/ssm_scan/kernel.py:66",
         lambda: ssd_chunked_cuda(*args, chunk=sq), lambda: ssd_ref(*args, chunk=q), 10,
         nbytes, ssd_flops(n, sq, h, dh, ns, q_min), F32_PRODUCT_S_PER_FLOP,
-        (n, sq, h, dh, ns, f"kernel and plain at Q={q}, bound at Q={q_min}"))
+        (n, sq, h, dh, ns, f"kernel and plain at Q={q}, bound at Q={q_min}"),
+        segments=p)
     flops_q = ssd_flops(n, sq, h, dh, ns, q)
     b_ms, b_by, fma_ms = bound_ms(nbytes, flops_q, F32_PRODUCT_S_PER_FLOP)
     say("times", f"ssd_chunked at this design's Q={q}: {flops_q / 1e9:.2f} GFLOP, bound "
                  f"{b_ms:.4f} ms ({b_by}, {b_ms / rows[-1]['ms']:.1%} of it; f32 FMA bound "
                  f"{fma_ms:.4f} ms), against {ssd_flops(n, sq, h, dh, ns, q_min) / 1e9:.2f} "
                  f"GFLOP at Q={q_min}; {card}")
+    d_flops = ssd_design_flops(n, sq, h, dh, ns, q, p)
+    d_bytes = ssd_design_bytes(n, sq, h, dh, ns, q, p)
+    d_ms = bound_ms(d_bytes, d_flops, F32_PRODUCT_S_PER_FLOP)[0]
+    say("times", f"ssd_chunked as this design does it, P={p} segments a sequence "
+                 f"({n * h * p} blocks): {d_flops / 1e9:.2f} GFLOP (the end-state pass and "
+                 f"the folds counted), {d_bytes / 1e9:.3f} GB (xs, bm, dt read again for all "
+                 f"but the last segment, the end states written and folded), bound "
+                 f"{d_ms:.4f} ms; {card}")
+    by_p = best_interleaved_ms([lambda: ssd_chunked_cuda(*args, chunk=sq, segments=1),
+                                lambda: ssd_chunked_cuda(*args, chunk=sq, segments=p)], 3)
+    say("times", f"ssd_chunked unsegmented (P=1, {n * h} blocks) vs P={p}, interleaved best "
+                 f"of 3: {by_p[0]:.4f} / {by_p[1]:.4f} ms; {card}")
     return rows
 
 
@@ -981,6 +1041,38 @@ def ssd_flops(b: int, s: int, h: int, dh: int, n: int, q: int) -> int:
         r = min(q, s - t0)
         per_head += r * (r + 1) * (n + dh) + 4 * r * n * dh + n * dh
     return b * h * per_head
+
+
+def _segments(s: int, q: int, p: int) -> list[list[int]]:
+    """Row counts of the chunks of each of the p segments (ref.segment_starts)."""
+    rows = [min(q, s - t0) for t0 in range(0, s, q)]
+    nc = len(rows)
+    return [rows[i * nc // p:(i + 1) * nc // p] for i in range(p)]
+
+
+def ssd_design_flops(b: int, s: int, h: int, dh: int, n: int, q: int, p: int) -> int:
+    """FLOPs of the segmented kernels: every chunk in full but the state
+    update after each segment's last chunk, the state pass of every segment
+    but the last, and the folds (segment i folds i end states)."""
+    update = lambda r: 2 * r * n * dh + n * dh  # noqa: E731
+    per_head = 0
+    for i, seg in enumerate(_segments(s, q, p)):
+        per_head += ssd_flops(1, sum(seg), 1, dh, n, q) - update(seg[-1])  # seg is whole chunks
+        if i + 1 < p:
+            per_head += sum(update(r) for r in seg)
+        per_head += 2 * i * n * dh
+    return b * h * per_head
+
+
+def ssd_design_bytes(b: int, s: int, h: int, dh: int, n: int, q: int, p: int) -> int:
+    """Bytes the segmented kernels move: the inputs once and y once, xs, bm
+    and dt again for the state pass, the end states (64 x 64 f32 each)
+    written once and read by every later segment's fold."""
+    once = (b * s * h * dh * 2 + b * s * n * 2 + b * s * h + h) * 4
+    again = sum(sum(seg) for seg in _segments(s, q, p)[:-1]) * b * (h * dh + n + h) * 4
+    states = b * h * (p - 1) * (64 * 64 + 1) * 4
+    folds = b * h * p * (p - 1) // 2 * (64 * 64 + 1) * 4
+    return once + again + states + folds
 
 
 def main() -> None:

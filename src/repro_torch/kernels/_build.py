@@ -37,7 +37,7 @@ SIGNATURES = {
         _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _L, _L, _L, _L, _L, _L, _I, _I, _F, _F, _P,
     ],
-    "seifer_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "seifer_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -40,6 +40,14 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
+// x as hi + lo in two instructions: hi = x with its low 13 bits cleared
+// (truncated to TF32), lo = x - hi, exact in f32 and given to the tensor core
+// as it is, which reads its top 10 mantissa bits: x within 2^-20.
+__device__ __forceinline__ void split_trunc(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
 // c (16 x 8, f32) += a (16 x 8, tf32) . b (8 x 8, tf32)
 __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
@@ -53,6 +61,15 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, ui
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// 4-byte asynchronous copy global -> shared, for rows that are not 16-byte
+// aligned; zero-filled when src_bytes is 0.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(gmem),
                "r"(src_bytes)
                : "memory");
 }

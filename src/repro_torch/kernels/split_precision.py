@@ -1,7 +1,8 @@
 """The split-precision arithmetic of the tensor-core kernels, in plain PyTorch.
 
-``csrc/flash_attention.cu`` and ``csrc/quantize.cu`` (dequant_matmul) take
-their products on the TF32 tensor cores.  One TF32 pass keeps 10 mantissa
+``csrc/flash_attention.cu``, ``csrc/quantize.cu`` (dequant_matmul) and
+``csrc/ssd_scan.cu`` take their products on the TF32 tensor cores (the
+SSD scan with the cheaper truncating split, ``split_trunc``).  One TF32 pass keeps 10 mantissa
 bits, too few for the f32 pins, so each f32 operand x is split into
 ``hi = tf32_rna(x)`` and ``lo = tf32_rna(x - hi)`` and a product is
 ``a_lo.b_hi + a_hi.b_lo + a_hi.b_hi`` (3 passes).  int8 codes are exact in
@@ -20,6 +21,9 @@ calls it; ``tests/test_torch_split_precision.py`` and ``chip_smoke.py
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssm_scan.ref import chunk_cumsum
 
 TF32_LOW_BITS = 0x1FFF  # the 13 mantissa bits TF32 drops
 
@@ -37,6 +41,19 @@ def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_rna(x - hi)
 
 
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """f32 with its 13 low mantissa bits cleared: truncated to TF32."""
+    return (x.contiguous().view(torch.int32) & ~TF32_LOW_BITS).view(torch.float32)
+
+
+def split_trunc(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x as hi + lo the cheap way (``split_tf32::split_trunc``): hi = x
+    truncated, lo = x - hi (exact in f32), of which the tensor core reads
+    the top 10 mantissa bits -- modelled as truncated too: 20 bits of x."""
+    hi = tf32_trunc(x)
+    return hi, tf32_trunc(x - hi)
+
+
 def split_bf16(x: torch.Tensor, pieces: int) -> list[torch.Tensor]:
     """x as a sum of ``pieces`` bf16 values (round to nearest even), largest
     first: two keep 16 bits of x, three all 24."""
@@ -52,6 +69,13 @@ def matmul_split3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """f32-accurate a @ b from three TF32 products, small terms first."""
     ah, al = split(a)
     bh, bl = split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def matmul_split3_trunc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``matmul_split3`` with the truncating split."""
+    ah, al = split_trunc(a)
+    bh, bl = split_trunc(b)
     return al @ bh + ah @ bl + ah @ bh
 
 
@@ -102,3 +126,34 @@ def dequant_matmul_emulated(q, scale, w, block, w_pieces=None):
         part = sum(c @ p[k0:k0 + block] for p in parts)
         out = torch.addcmul(out, scale[:, blk:blk + 1], part)
     return out
+
+
+def ssd_emulated(xs, bm, cm, dt, a, *, chunk: int = 64, matmul=matmul_split3_trunc):
+    """The SSD kernel's arithmetic (one segment): per chunk of ``chunk``
+    rows, C state^T, C B^T, scores x and (B w)^T x through ``matmul`` (the
+    kernel's truncating split-TF32 by default); cum
+    in the plain version's order, the decays, the mask before exp and the
+    scaling by dt in f32, as the kernel keeps them on the FMA units.
+    -> y (B, S, H, dh)."""
+    b, s, h, dh = xs.shape
+    n = bm.shape[-1]
+    pad = -s % chunk
+    xs, bm, cm, dt = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (xs, bm, cm, dt))
+    nc = xs.shape[1] // chunk
+    cum = chunk_cumsum((dt * a).reshape(b, nc, chunk, h), 2).permute(0, 1, 3, 2)  # (B, nc, H, q)
+    dts = dt.reshape(b, nc, chunk, h).permute(0, 1, 3, 2)
+    upper = ~torch.ones((chunk, chunk), dtype=torch.bool, device=xs.device).tril()
+    state_t = torch.zeros((b, h, n, dh), dtype=xs.dtype, device=xs.device)  # state^T
+    ys = []
+    for c in range(nc):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        x = xs[:, rows].permute(0, 2, 1, 3)  # (B, H, q, dh)
+        bk, ck = bm[:, rows, None].transpose(1, 2), cm[:, rows, None].transpose(1, 2)  # (B, 1, q, N)
+        cu, dk = cum[:, c], dts[:, c]  # (B, H, q)
+        y_out = matmul(ck, state_t)
+        lmat = torch.exp((cu[..., :, None] - cu[..., None, :]).masked_fill(upper, float("-inf")))
+        scores = matmul(ck, bk.transpose(-1, -2)) * lmat * dk[..., None, :]
+        ys.append(matmul(scores, x) + y_out * torch.exp(cu)[..., None])
+        bw = bk * (torch.exp(cu[..., -1:] - cu) * dk)[..., None]  # (B, H, q, N)
+        state_t = state_t * torch.exp(cu[..., -1])[..., None, None] + matmul(bw.transpose(-1, -2), x)
+    return torch.cat(ys, 2).permute(0, 2, 1, 3)[:, :s]

@@ -9,6 +9,15 @@ asks for: the scan is chunk-invariant, and a Q x Q score tile at the
 demo model's ``chunk=seq`` would not fit a block.  A ragged last chunk is
 masked inside the kernel.  The output is a new (B, S, H, dh) f32 tensor;
 the launch is counted in ``launches``.
+
+Each (batch row, head) sequence is cut into ``segments`` segments of whole
+chunks (``ref.segment_starts``), so that short work items fill the card:
+``segments_for`` picks their number from the card's SM count unless the
+caller forces it.  The C entry point runs two kernels: the first scans
+every segment but the last from a zero state for its end state and decay,
+into scratch the wrapper allocates here; the second folds those for its
+segment's starting state and scans it.  ``ref.ssd_ref_segmented`` is the
+same decomposition in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -20,6 +29,30 @@ from repro_torch.kernels.ssm_scan.ref import chunk_of
 
 KERNEL_CHUNK = 64  # rows per chunk inside the kernel (Q in ssd_scan.cu)
 MAX_WIDTH = 64  # largest dh and N the kernel's shared tiles hold
+BLOCKS_PER_SM = 2  # resident blocks of the folding (output) kernel on one SM
+# the least waves of output blocks segments_for aims at: more segments fill
+# the card more evenly but re-read xs and redo the state pass for all but
+# the last; 2 waves (P=2 at demo_ssm's served layer) measured fastest
+WAVES = 2
+MIN_SEGMENT_CHUNKS = 4  # shorter segments cost more in folds than they gain
+
+
+def segments_for(b: int, h: int, n_chunks: int, sms: int) -> int:
+    """Segments per sequence: the least power of two that gives the B H P
+    blocks ``WAVES`` waves on ``sms`` SMs, with segments of at least
+    ``MIN_SEGMENT_CHUNKS`` chunks (so 1 for short sequences)."""
+    want = -(-WAVES * BLOCKS_PER_SM * sms // max(1, b * h))
+    cap = max(1, n_chunks // MIN_SEGMENT_CHUNKS)
+    p = 1
+    while p < want and 2 * p <= cap:
+        p *= 2
+    return p
+
+
+def default_segments(b: int, s: int, h: int, device: torch.device) -> int:
+    """The segments per sequence the wrapper takes on ``device`` unless told."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return segments_for(b, h, -(-s // KERNEL_CHUNK), sms)
 
 
 def _require(t: torch.Tensor, name: str, shape: tuple) -> None:
@@ -41,6 +74,7 @@ def ssd_chunked_cuda(
     a: torch.Tensor,  # (H,)
     *,
     chunk: int = 128,
+    segments: int | None = None,
 ) -> torch.Tensor:
     if xs.dim() != 4 or bm.dim() != 3:
         raise ValueError(f"xs must be (B, S, H, dh) and bm (B, S, N), got "
@@ -55,14 +89,25 @@ def ssd_chunked_cuda(
         chunk_of(s, chunk)
     if not (1 <= dh <= MAX_WIDTH and 1 <= n <= MAX_WIDTH):
         raise ValueError(f"kernel takes dh and N in 1..{MAX_WIDTH}, got dh={dh}, N={n}")
-    if b > 65535:
-        raise ValueError("kernel grid takes at most 65535 batch rows")
+    if b > 65535 or h > 65535:
+        raise ValueError("kernel grid takes at most 65535 batch rows and heads")
+    if segments is not None and segments < 1:
+        raise ValueError(f"segments must be at least 1, got {segments}")
+    n_chunks = -(-s // KERNEL_CHUNK)
+    if segments is None:
+        segments = default_segments(b, s, h, xs.device)
+    p = max(1, min(segments, n_chunks))
     y = torch.empty((b, s, h, dh), dtype=torch.float32, device=xs.device)
+    # end state (N x dh, padded to the kernel's 64 x 64) and decay of every
+    # segment but the last, per sequence
+    ends = torch.empty((b, h, p - 1, MAX_WIDTH, MAX_WIDTH), dtype=torch.float32,
+                       device=xs.device)
+    decays = torch.empty((b, h, p - 1), dtype=torch.float32, device=xs.device)
     if b and s and h:
         err = _build.lib().seifer_ssd_scan(
             xs.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(),
-            a.data_ptr(), y.data_ptr(), b, s, h, dh, n,
-            torch.cuda.current_stream(xs.device).cuda_stream)
+            a.data_ptr(), y.data_ptr(), ends.data_ptr(), decays.data_ptr(),
+            b, s, h, dh, n, p, torch.cuda.current_stream(xs.device).cuda_stream)
         _build.check(err, "ssd_scan")
         ssd_chunked_cuda.launches += 1
     return y

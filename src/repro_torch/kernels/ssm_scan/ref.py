@@ -22,8 +22,11 @@ one f32 ulp is ~1e-5), so the order decides whether the port holds the JAX
 package's 1e-5 pin; the CUDA kernel sums in the same order, so its cum is
 bit-identical to this version's.
 
-This is the function ``csrc/ssd_scan.cu`` computes; the CPU tests hold it to
-the JAX package, and ``chip_smoke.py`` holds the kernel to it on the card.
+The CUDA kernel cuts each sequence into segments of whole chunks so that
+its blocks fill the card; ``ssd_ref_segmented`` is that decomposition in
+plain PyTorch (end states of the segments from zero, folded in order), and
+at one segment it is ``ssd_ref_padded``.  The CPU tests hold these to the
+JAX package, and ``chip_smoke.py`` holds the kernel to them on the card.
 """
 
 from __future__ import annotations
@@ -65,9 +68,10 @@ def chunk_of(s: int, chunk: int) -> int:
     return q
 
 
-def ssd_ref(xs, bm, cm, dt, a, *, chunk: int = 64):
+def ssd_ref(xs, bm, cm, dt, a, *, chunk: int = 64, state0=None):
     """-> (y (B, S, H, dh), final state (B, H, dh, N)), f32 (f64 for f64
-    inputs: ``chip_smoke.py`` takes that as its exact yardstick)."""
+    inputs: ``chip_smoke.py`` takes that as its exact yardstick).  The
+    state starts at ``state0`` (B, H, dh, N), zero when None."""
     b, s, h, dh = xs.shape
     n = bm.shape[-1]
     q = chunk_of(s, chunk)
@@ -81,7 +85,8 @@ def ssd_ref(xs, bm, cm, dt, a, *, chunk: int = 64):
     cum = chunk_cumsum(da.reshape(b, nc, q, h), 2)
     upper = ~torch.ones((q, q), dtype=torch.bool, device=xs.device).tril()
 
-    state = torch.zeros((b, h, dh, n), dtype=xs_c.dtype, device=xs.device)
+    state = (torch.zeros((b, h, dh, n), dtype=xs_c.dtype, device=xs.device)
+             if state0 is None else state0)
     ys = []
     for c in range(nc):
         xs_k, bm_k, cm_k, dt_k, cum_k = (
@@ -108,3 +113,40 @@ def ssd_ref_padded(xs, bm, cm, dt, a, *, chunk: int):
     pad = -s % chunk
     padded = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (xs, bm, cm, dt)]
     return ssd_ref(*padded, a, chunk=chunk)[0][:, :s]
+
+
+def segment_starts(n_chunks: int, segments: int) -> list[int]:
+    """First chunk of each of ``segments`` segments of whole chunks, and
+    ``n_chunks`` at the end: segment p is chunks [p nc / P, (p + 1) nc / P),
+    at least one each (``segments <= n_chunks``).  The kernel cuts alike."""
+    if not 1 <= segments <= n_chunks:
+        raise ValueError(f"segments must be in 1..{n_chunks}, got {segments}")
+    return [p * n_chunks // segments for p in range(segments + 1)]
+
+
+def ssd_ref_segmented(xs, bm, cm, dt, a, *, chunk: int, segments: int):
+    """``ssd_ref_padded`` computed as the CUDA kernel decomposes it.  The
+    padded sequence is cut into ``segments`` segments of whole chunks
+    (``segment_starts``).  Each segment but the last is scanned from a zero
+    state for its end state L_p, and its decay D_p is the product, in chunk
+    order, of exp(cum_last) over its chunks.  Segment p then starts from
+    s = 0; s = s D_p' + L_p' for p' < p, in order, and is scanned from s.
+    At one segment this is ``ssd_ref_padded`` exactly."""
+    b, s, h, _ = xs.shape
+    pad = -s % chunk
+    xs, bm, cm, dt = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (xs, bm, cm, dt))
+    nc = xs.shape[1] // chunk
+    starts = [c * chunk for c in segment_starts(nc, segments)]
+    cum_last = chunk_cumsum((dt * a).reshape(b, nc, chunk, h), 2)[:, :, -1]  # (B, nc, H)
+    ys, carried = [], None
+    for p in range(segments):
+        part = [t[:, starts[p]:starts[p + 1]] for t in (xs, bm, cm, dt)]
+        ys.append(ssd_ref(*part, a, chunk=chunk, state0=carried)[0])
+        if p + 1 == segments:
+            break
+        _, end = ssd_ref(*part, a, chunk=chunk)  # L_p, from a zero state
+        decay = torch.ones_like(cum_last[:, 0])
+        for c in range(starts[p] // chunk, starts[p + 1] // chunk):
+            decay = decay * torch.exp(cum_last[:, c])
+        carried = end if carried is None else carried * decay[:, :, None, None] + end
+    return torch.cat(ys, 1)[:, :s]

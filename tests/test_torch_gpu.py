@@ -32,8 +32,12 @@ from repro_torch.kernels.quantize.ref import (
     dequantize_ref,
     quantize_ref,
 )
-from repro_torch.kernels.ssm_scan.kernel import KERNEL_CHUNK, ssd_chunked_cuda
-from repro_torch.kernels.ssm_scan.ref import ssd_ref, ssd_ref_padded
+from repro_torch.kernels.ssm_scan.kernel import (
+    KERNEL_CHUNK,
+    default_segments,
+    ssd_chunked_cuda,
+)
+from repro_torch.kernels.ssm_scan.ref import ssd_ref, ssd_ref_padded, ssd_ref_segmented
 
 pytestmark = pytest.mark.gpu
 
@@ -269,34 +273,92 @@ def _ssd_case(cuda, b, s, h, dh, n, seed):
     return xs, bm, cm, dt, a
 
 
-@pytest.mark.parametrize("b,s,h,dh,n,chunk", [
+SSD_SHAPES = [
     (2, 256, 4, 64, 32, 64), (1, 512, 8, 64, 64, 128), (2, 8, 2, 12, 4, 8),
     (1, 96, 3, 64, 16, 32), (2, 200, 5, 32, 64, 8), (1, 130, 80, 64, 64, 130),
     (1, 64, 80, 64, 16, 64), (2, 192, 2, 64, 64, 64),
-])
+]
+
+
+def _ssd_rel(out, ref) -> float:
+    return (out - ref).abs().max().item() / ref.abs().max().item()
+
+
+@pytest.mark.parametrize("b,s,h,dh,n,chunk", SSD_SHAPES)
 def test_ssd_matches_plain(cuda, b, s, h, dh, n, chunk):
-    """Against the plain version chunked as the kernel chunks
-    (``ssd_ref_padded`` at ``KERNEL_CHUNK``), cum is
-    bit-identical and only the products' f32 order differs: 1e-5 of
-    max|plain|, the JAX package's kernel-vs-ref pin.  Against the plain
-    version at the caller's chunk: 1e-4, its chunk-invariance pin."""
+    """Against the plain version decomposed as the kernel decomposes it
+    (``ssd_ref_segmented`` at ``KERNEL_CHUNK`` and the wrapper's own
+    segments), cum is bit-identical and only the products' f32 order
+    differs: 1e-5 of max|plain|, the JAX package's kernel-vs-ref pin.
+    Against the plain version at the caller's chunk: 1e-4, its
+    chunk-invariance pin."""
     args = _ssd_case(cuda, b, s, h, dh, n, 10)
     out = ssd_chunked_cuda(*args, chunk=chunk)
-    same = ssd_ref_padded(*args, chunk=KERNEL_CHUNK)
+    p = min(default_segments(b, s, h, out.device), -(-s // KERNEL_CHUNK))
+    same = ssd_ref_segmented(*args, chunk=KERNEL_CHUNK, segments=p)
     ref, _ = ssd_ref(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
-    assert (out - same).abs().max().item() <= 1e-5 * same.abs().max().item()
-    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert _ssd_rel(out, same) <= 1e-5
+    assert _ssd_rel(out, ref) <= 1e-4
+
+
+@pytest.mark.parametrize("segments", [2, 3, "nc"])
+@pytest.mark.parametrize("b,s,h,dh,n,chunk", SSD_SHAPES)
+def test_ssd_forced_segments_match_plain(cuda, b, s, h, dh, n, chunk, segments):
+    """At forced segments (clamped to the chunks there are, as the wrapper
+    clamps), with dt / 100 so that the carried state reaches every later
+    segment: within 1e-5 of max|plain| of ``ssd_ref_segmented``."""
+    xs, bm, cm, dt, a = _ssd_case(cuda, b, s, h, dh, n, 20)
+    args = (xs, bm, cm, dt * 0.01, a)
+    nc = -(-s // KERNEL_CHUNK)
+    p = nc if segments == "nc" else segments
+    out = ssd_chunked_cuda(*args, chunk=chunk, segments=p)
+    same = ssd_ref_segmented(*args, chunk=KERNEL_CHUNK, segments=min(p, nc))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert _ssd_rel(out, same) <= 1e-5
+    assert _ssd_rel(out, ssd_ref_padded(*args, chunk=KERNEL_CHUNK)) <= 1e-5
+
+
+@pytest.mark.parametrize("b,s,h,dh,n,segments", [
+    (1, 40, 3, 64, 64, 1),      # S < 64: one ragged chunk
+    (2, 50, 2, 20, 12, 4),      # S < 64 asked for 4 segments: clamped to 1
+    (1, 448, 4, 22, 37, 7),     # P = nc, dh and N < 64 and not multiples of 4
+    (1, 1000, 2, 48, 8, 5),     # ragged last chunk in the last of 5 segments
+])
+def test_ssd_edges_of_the_segments(cuda, b, s, h, dh, n, segments):
+    xs, bm, cm, dt, a = _ssd_case(cuda, b, s, h, dh, n, 30)
+    args = (xs, bm, cm, dt * 0.01, a)
+    out = ssd_chunked_cuda(*args, chunk=s, segments=segments)
+    same = ssd_ref_segmented(*args, chunk=KERNEL_CHUNK,
+                             segments=min(segments, -(-s // KERNEL_CHUNK)))
+    torch.cuda.synchronize()
+    assert _ssd_rel(out, same) <= 1e-5
+
+
+def test_ssd_strong_decay_stays_finite(cuda):
+    """dt x 200 (the CPU NaN test's decay): every D_p underflows to 0 and
+    exp(cum_t - cum_s) overflows above the diagonal, masked before exp."""
+    xs, bm, cm, dt, _ = _ssd_case(cuda, 1, 512, 2, 64, 16, 40)
+    args = (xs, bm, cm, dt * 200.0, torch.tensor([-5.0, -0.5], device=xs.device))
+    out = ssd_chunked_cuda(*args, chunk=512, segments=4)
+    same = ssd_ref_segmented(*args, chunk=KERNEL_CHUNK, segments=4)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert _ssd_rel(out, same) <= 1e-5
 
 
 def test_ssd_main_path_shape(cuda):
-    """demo_ssm's served layer: (4, 8192, 80, 64) x N=64, plain at chunk 64."""
+    """demo_ssm's served layer: (4, 8192, 80, 64) x N=64 at the wrapper's
+    own segments, plain version decomposed alike at chunk 64."""
     args = _ssd_case(cuda, 4, 8192, 80, 64, 64, 11)
     out = ssd_chunked_cuda(*args, chunk=8192)
-    ref, _ = ssd_ref(*args, chunk=KERNEL_CHUNK)
+    p = default_segments(4, 8192, 80, out.device)
+    assert p > 1
+    ref = ssd_ref_segmented(*args, chunk=KERNEL_CHUNK, segments=p)
     torch.cuda.synchronize()
-    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert _ssd_rel(out, ref) <= 1e-5
 
 
 def test_ssd_wrapper_refuses(cuda):
@@ -310,3 +372,6 @@ def test_ssd_wrapper_refuses(cuda):
     with pytest.raises(ValueError, match="dh and N"):
         ssd_chunked_cuda(_randn((1, 96, 1, 128), 13, cuda), *args[1:3],
                          args[3][:, :, :1].contiguous(), args[4][:1])
+    for bad in (0, -1):
+        with pytest.raises(ValueError, match="segments"):
+            ssd_chunked_cuda(*args, chunk=96, segments=bad)

@@ -27,6 +27,8 @@ import torch
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.kernels.quantize import dequant_matmul as jax_dequant_matmul
 from repro.kernels.quantize.ref import quantize_ref as jax_quantize_ref
+from repro.kernels.ssm_scan.kernel import ssd_chunked_tpu as jax_ssd_chunked_tpu
+from repro.kernels.ssm_scan.ref import ssd_ref as jax_ssd_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.quantize.ref import dequant_matmul_ref
 from repro_torch.kernels.split_precision import (
@@ -37,11 +39,15 @@ from repro_torch.kernels.split_precision import (
     matmul_tf32,
     split,
     split_bf16,
+    split_trunc,
+    ssd_emulated,
     tf32_rna,
 )
+from repro_torch.kernels.ssm_scan.ref import ssd_ref_padded
 
 TOL_FLASH = 2e-5
 TOL_DQMM = 1e-5
+TOL_SSD = 1e-5
 LOW_BITS = TF32_LOW_BITS
 CARD_SHARE = 0.5  # of a pin, left to the tensor cores' accumulation
 
@@ -66,6 +72,19 @@ def test_hi_plus_lo_rebuilds_x(scale):
     # hi alone is one TF32 rounding: within 2^-11 of x, and no closer in general
     rel = ((hi - x).abs() / x.abs()).max().item()
     assert 2.0**-14 < rel <= 2.0**-11
+
+
+@pytest.mark.parametrize("scale", [1e-30, 1e-3, 1.0, 7.5, 3e4])
+def test_truncating_split_rebuilds_x(scale):
+    """The SSD kernel's two-instruction split: hi truncated, lo the exact
+    remainder, read by the tensor core to 10 bits -- x within 2^-20."""
+    x = torch.from_numpy(_normal((4096,), 1, scale))
+    hi, lo = split_trunc(x)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & LOW_BITS).any()
+    assert (hi.abs() <= x.abs()).all()  # truncation, towards zero
+    err = ((hi.double() + lo.double()) - x.double()).abs()
+    assert (err <= 2.0**-20 * x.double().abs()).all()
 
 
 def test_tf32_rounds_to_nearest_ties_away():
@@ -181,3 +200,49 @@ def test_dequant_matmul_codes_need_no_lo():
     codes = torch.arange(-127, 128, dtype=torch.float32)
     hi, lo = split(codes)
     assert torch.equal(hi, codes) and not lo.any()
+
+
+def _ssd_inputs(b, s, h, dh, n, seed):
+    xs, bm, cm = _normal((b, s, h, dh), seed, 0.5), _normal((b, s, n), seed + 1, 0.5), \
+        _normal((b, s, n), seed + 2, 0.5)
+    dt = np.log1p(np.exp(_normal((b, s, h), seed + 3)))  # softplus
+    a = -np.exp(_normal((h,), seed + 4, 0.3))
+    return [np.asarray(t, np.float32) for t in (xs, bm, cm, dt, a)]
+
+
+SSD_CASES = [  # (b, s, h, dh, n, the JAX package's chunk)
+    (2, 256, 4, 64, 32, 64), (1, 512, 8, 64, 64, 128), (1, 192, 2, 64, 64, 64), (2, 8, 2, 12, 4, 8),
+]
+
+
+@pytest.mark.parametrize("b,s,h,dh,n,chunk", SSD_CASES)
+def test_ssd_split3_holds_half_the_pin(b, s, h, dh, n, chunk):
+    """The SSD kernel's four products in split-TF32 (at its own chunk of
+    64): within half the 1e-5 pin of max|ref| of the JAX package's
+    ``ssd_ref`` and of its Pallas kernel in interpret mode (``ssd_chunked_tpu``
+    at the same chunk), leaving the other half to the tensor cores'
+    accumulation on the card."""
+    arrays = _ssd_inputs(b, s, h, dh, n, 20)
+    emulated = ssd_emulated(*(torch.from_numpy(t) for t in arrays))
+    jargs = [jnp.asarray(t) for t in arrays]
+    for want in (jax_ssd_ref(*jargs, chunk=chunk)[0],
+                 jax_ssd_chunked_tpu(*jargs, chunk=chunk, interpret=True)):
+        assert _max_abs(emulated, want) <= CARD_SHARE * TOL_SSD * float(np.abs(want).max())
+
+
+def test_ssd_split3_matches_the_plain_version_slow_decay():
+    """dt / 100, so the state carries across many chunks and C state^T and
+    the state update weigh in: still within half the pin of the plain
+    version at the same chunk."""
+    xs, bm, cm, dt, a = (torch.from_numpy(t) for t in _ssd_inputs(1, 640, 3, 64, 64, 30))
+    args = (xs, bm, cm, dt * 0.01, a)
+    plain = ssd_ref_padded(*args, chunk=64)
+    assert _max_abs(ssd_emulated(*args), plain) <= CARD_SHARE * TOL_SSD * float(plain.abs().max())
+
+
+def test_ssd_one_tf32_pass_breaks_the_pin():
+    """Why the split: one TF32 pass of each product lands ~5e-4 of max|y| off."""
+    arrays = _ssd_inputs(2, 256, 4, 64, 32, 20)
+    one_pass = ssd_emulated(*(torch.from_numpy(t) for t in arrays), matmul=matmul_tf32)
+    want = jax_ssd_ref(*(jnp.asarray(t) for t in arrays), chunk=64)[0]
+    assert _max_abs(one_pass, want) > 10 * TOL_SSD * float(np.abs(want).max())

@@ -20,7 +20,14 @@ from repro.kernels.ssm_scan.ops import ssd_chunked as jax_ssd_chunked
 from repro.kernels.ssm_scan.ref import ssd_ref as jax_ssd_ref
 from repro_torch.kernels.ssm_scan import ssd_chunked
 from repro_torch.kernels.ssm_scan.kernel import ssd_chunked_cuda
-from repro_torch.kernels.ssm_scan.ref import chunk_cumsum, ssd_ref, ssd_ref_padded
+from repro_torch.kernels.ssm_scan.kernel import segments_for
+from repro_torch.kernels.ssm_scan.ref import (
+    chunk_cumsum,
+    segment_starts,
+    ssd_ref,
+    ssd_ref_padded,
+    ssd_ref_segmented,
+)
 
 # (b, s, h, dh, n, chunk): the JAX package's two kernel-test dims, and
 # demo_ssm's default layer (S=8, one chunk)
@@ -115,3 +122,81 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ssd_chunked_cuda(*args, chunk=8)
     assert ssd_chunked_cuda.launches == 0
+
+
+def _max_rel(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("dims", [(2, 256, 4, 64, 32), (1, 200, 3, 16, 8), (2, 8, 2, 12, 4)])
+def test_segmented_at_one_segment_is_the_padded_plain_version(dims):
+    args = _torch(_inputs(*dims, seed=6))
+    assert torch.equal(ssd_ref_segmented(*args, chunk=64, segments=1),
+                       ssd_ref_padded(*args, chunk=64))
+
+
+# (b, s, h, dh, n, segments): S=200 is ragged (4 chunks of 64, the last of
+# 8 rows); P=3 over 4 chunks gives segments of 1, 1 and 2 chunks; P=nc
+# makes every segment one chunk
+SEGMENTED = [(2, 256, 4, 64, 32, 2), (1, 200, 3, 16, 8, 2), (1, 200, 3, 16, 8, 3),
+             (1, 200, 3, 16, 8, 4), (2, 320, 2, 32, 16, 3), (1, 512, 2, 64, 64, 8)]
+
+
+@pytest.mark.parametrize("slow", [False, True])
+@pytest.mark.parametrize("dims", SEGMENTED)
+def test_segmented_matches_plain_scan(dims, slow):
+    """Folding the segments' end states moves where the state's decays are
+    multiplied, not what is computed: within 1e-6 of max|y| of the plain
+    scan.  With dt / 100 (``slow``) a chunk decays the state by ~e^-0.5, not
+    ~e^-45, so the carried state reaches every later segment."""
+    *shape, segments = dims
+    xs, bm, cm, dt, a = _torch(_inputs(*shape, seed=7))
+    args = (xs, bm, cm, dt * 0.01 if slow else dt, a)
+    y = ssd_ref_segmented(*args, chunk=64, segments=segments)
+    pad = -shape[1] % 64
+    ref, _ = ssd_ref(*(torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                       for t in args[:4]), a, chunk=64)
+    ref = ref[:, :shape[1]]
+    assert y.shape == ref.shape and y.dtype == torch.float32
+    assert _max_rel(y, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("dims", [(2, 256, 4, 64, 32, 64, 2), (1, 512, 8, 64, 64, 128, 4),
+                                  (1, 192, 2, 64, 16, 64, 3)])
+def test_segmented_matches_jax_ref_and_pallas_interpret(dims):
+    *shape, chunk, segments = dims
+    arrays = _inputs(*shape, seed=8)
+    y = ssd_ref_segmented(*_torch(arrays), chunk=chunk, segments=segments).numpy()
+    y_ref, _ = jax_ssd_ref(*_jax(arrays), chunk=chunk)
+    y_pal = jax_ssd_chunked(*_jax(arrays), chunk=chunk, use_pallas=True, interpret=True)
+    np.testing.assert_allclose(y, np.asarray(y_ref), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(y, np.asarray(y_pal), atol=1e-5, rtol=1e-5)
+
+
+def test_segmented_strong_decay_stays_finite():
+    """dt x 200 drives every D_p to 0 and the state with it; nothing overflows."""
+    xs, bm, cm, dt, _ = _torch(_inputs(1, 256, 2, 8, 4, seed=3))
+    args = (xs, bm, cm, dt * 200.0, torch.tensor([-5.0, -0.5]))
+    y = ssd_ref_segmented(*args, chunk=64, segments=4)
+    assert torch.isfinite(y).all()
+    assert _max_rel(y, ssd_ref_padded(*args, chunk=64)) <= 1e-6
+
+
+def test_segment_starts():
+    assert segment_starts(128, 8) == list(range(0, 129, 16))
+    assert segment_starts(4, 3) == [0, 1, 2, 4]
+    assert segment_starts(5, 5) == [0, 1, 2, 3, 4, 5]
+    for bad in (0, 6):
+        with pytest.raises(ValueError, match="segments"):
+            segment_starts(5, bad)
+
+
+@pytest.mark.parametrize("b,h,n_chunks,sms,want", [
+    (4, 80, 128, 132, 2),     # the served layer: 640 blocks, 2.4 waves
+    (1, 2, 1, 132, 1),        # one chunk: nothing to split
+    (2, 2, 3, 132, 1),        # short sequence
+    (1, 2, 512, 132, 128),    # few heads, long sequence: segments of 4 chunks
+    (64, 80, 128, 132, 1),    # many sequences fill the card by themselves
+])
+def test_segments_for(b, h, n_chunks, sms, want):
+    assert segments_for(b, h, n_chunks, sms) == want
