@@ -14,7 +14,8 @@ the first fault:
 3. parity  -- each kernel against its plain PyTorch version on the card, at
    the shapes the served path gives it: quantize codes and scales equal and
    dequantize exact at demo_ssm's and demo_transformer's hop payloads
-   (dequantize also at demo_mlp's), dequant_matmul within 1e-5 of max|plain|, flash
+   (dequantize also at demo_mlp's; the path each takes is printed),
+   dequant_matmul within 1e-5 of max|plain|, flash
    attention within 2e-5 max-abs (f32) for the global and windowed,
    soft-capped layers and a plain causal one; the SSD scan within 1e-5 of
    max|plain| (``ssd_ref_segmented``: the plain version chunked at 64 and
@@ -26,8 +27,10 @@ the first fault:
    through ``deploy`` with int8 hops: 4 requests, a ``NodeFailed`` on a
    hosting node, 4 more; every result a finite CUDA tensor, each request
    completed once; the quantize, dequant_matmul and flash kernels launched.
-5. serve demo_mlp(d=4096) with int8 hops: the hop decode runs the
-   dequantize kernel.
+5. serve demo_mlp(d=4096) with int8 hops (the hop decode runs the
+   dequantize kernel), then with fp16 hops (``codec="auto"`` at accuracy
+   tolerance 1e-3) and with topk-sparse hops: every request completed once
+   as a finite CUDA tensor, the plan carrying the named codec.
 6. serve demo_ssm at zamba2-2.7b's Mamba2 mixer width (d = d_inner = 5120,
    80 heads of 64, N=64, S=8192, 6 layers) the same way as phase 4: the
    SSD scan, quantize and dequantize kernels launched.
@@ -53,8 +56,11 @@ the first fault:
    (495 TFLOP/s) under split-TF32, or 2 bf16 passes (989 TFLOP/s) where one
    operand is an exact int8 code and the other two bf16 pieces; the f32 FMA bound
    stays beside it as ``bound_f32_fma_ms``.  dequantize is timed at
-   demo_ssm's hop; the SSD scan's bound counts the fewest operations of any
-   chunking, and the kernel's own Q=64 count is printed beside it, with
+   demo_ssm's hop, and its scalar path (the kernel before the vector path,
+   on the same codes at an odd byte offset) against its vector path there,
+   interleaved turns of 20 launches, in f32 and bf16; the SSD scan's bound
+   counts the fewest operations of any chunking, and the kernel's own Q=64
+   count is printed beside it, with
    its segments P, the FLOPs and bytes of the segmented design (state pass
    and folds counted) and its time unsegmented (P=1) against P.
 
@@ -154,15 +160,18 @@ def bound_ms(nbytes: float, flops: float, s_per_flop: float = 0.0) -> tuple[floa
     return max(t_bytes, t_ops) * 1e3, by, max(t_bytes, t_fma) * 1e3
 
 
-def best_interleaved_ms(fns, reps: int) -> list[float]:
-    """Best-of-``reps`` device time of each fn, one call of each in turn, so
-    drift hits every candidate alike (``benchmarks/kernel_path.py``'s way)."""
+def best_interleaved_ms(fns, reps: int, launches: int = 1) -> list[float]:
+    """Best-of-``reps`` device time of each fn, one turn of each in turn, so
+    drift hits every candidate alike (``benchmarks/kernel_path.py``'s way).
+    A turn is ``launches`` back-to-back calls (their mean): a single call
+    also times the host's enqueue of it, tens of microseconds, which a
+    kernel of a fraction of a millisecond does not hide."""
     for fn in fns:
         fn()
     best = [math.inf] * len(fns)
     for _ in range(reps):
         for i, fn in enumerate(fns):
-            best[i] = min(best[i], cuda_time_ms(fn, 1, warmup=0))
+            best[i] = min(best[i], cuda_time_ms(fn, launches, warmup=0))
     return best
 
 
@@ -363,6 +372,7 @@ def phase_parity() -> dict:
     from repro_torch.kernels.quantize.kernel import (
         dequant_matmul_cuda,
         dequantize_int8_cuda,
+        dequantize_path,
         quantize_int8_cuda,
     )
     from repro_torch.kernels.quantize.ref import dequant_matmul_ref, dequantize_ref, quantize_ref
@@ -388,7 +398,8 @@ def phase_parity() -> dict:
             out = dequantize_int8_cuda(q, sc, dtype=torch.float32, block=256)
             if not torch.equal(out, dequantize_ref(q, sc, torch.float32, 256)):
                 fail(f"dequantize_int8 {shape}: not exact")
-            say("parity", f"dequantize_int8 {shape} -> f32: exact")
+            say("parity", f"dequantize_int8 {shape} -> f32 (demo_ssm's hop, "
+                          f"{dequantize_path(q, 256)} path): exact")
             del out, x, q, sc, q_ref, s_ref
     err["quantize_int8"] = 0.0
 
@@ -399,6 +410,9 @@ def phase_parity() -> dict:
             fail(f"dequantize_int8 {tuple(shape_q.shape)}: not exact")
     err["dequantize_int8"] = 0.0
     say("parity", f"dequantize_int8 {tuple(qm.shape)} and {tuple(q[:1].shape)} -> f32: exact")
+    say("parity", f"dequantize_int8 paths: demo_mlp's hop {tuple(qm.shape)} "
+                  f"{dequantize_path(qm, 256)}, the unfused yardstick's {tuple(q.shape)} "
+                  f"{dequantize_path(q, 256)}")
 
     w = randn((d, proj), 3, 0.3)
     out = dequant_matmul_cuda(q, sc, w, dtype=torch.float32, block=256)
@@ -762,6 +776,9 @@ def profile_serve(d, shape, what: str) -> None:
 
 
 def phase_serve_mlp() -> dict:
+    """demo_mlp(d=4096): int8 hops (the quantize and dequantize kernels),
+    then fp16 hops (``codec="auto"`` at tolerance 1e-3) and topk-sparse
+    hops (plain torch ops on the card)."""
     import torch
 
     from repro_torch.api import ClusterSpec, DeploymentSpec, deploy
@@ -769,26 +786,35 @@ def phase_serve_mlp() -> dict:
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     graph, executor_for_version = demo_mlp(d=4096, device="cuda")
-    d = deploy(DeploymentSpec(
-        model=graph, executor_for_version=executor_for_version,
-        cluster=ClusterSpec(n_nodes=6, capacity_bytes=graph.total_param_bytes / 2.5, seed=5),
-        codec="int8", seed=3, microbatch=MICROBATCH, device="cuda"))
-    if "int8" not in d.plan.codecs:
-        fail(f"planner put no int8 hop on demo_mlp's wire: {d.plan.codecs}")
-    reset_launch_counts()
-    reqs = [d.submit(randn((4096,), 300 + i, 0.5)) for i in range(2 * MICROBATCH)]
-    done = d.drain()
-    torch.cuda.synchronize()
-    counts = launch_counts()
-    if len(done) != len(reqs) or not all(
-            r.result.is_cuda and bool(torch.isfinite(r.result).all()) for r in reqs):
-        fail("demo_mlp: not every request completed with a finite CUDA result")
-    say("serve", f"demo_mlp(d=4096) codecs {list(d.plan.codecs)}: {len(done)} requests; "
-                 f"launches {counts}")
-    for name in ("quantize_int8_cuda", "dequantize_int8_cuda"):
-        if counts[name] == 0:
-            fail(f"{name} was never launched on demo_mlp's int8 hops")
-    return counts
+    int8_counts = None
+    for codec, kw, want in (("int8", {}, "int8"),
+                            ("auto", {"accuracy_tolerance": 1e-3}, "fp16"),
+                            ("topk-sparse", {}, "topk-sparse")):
+        d = deploy(DeploymentSpec(
+            model=graph, executor_for_version=executor_for_version,
+            cluster=ClusterSpec(n_nodes=6, capacity_bytes=graph.total_param_bytes / 2.5, seed=5),
+            codec=codec, seed=3, microbatch=MICROBATCH, device="cuda", **kw))
+        if want not in d.plan.codecs:
+            fail(f"planner put no {want} hop on demo_mlp's wire (codec={codec!r} {kw}): "
+                 f"{d.plan.codecs}")
+        reset_launch_counts()
+        reqs = [d.submit(randn((4096,), 300 + i, 0.5)) for i in range(2 * MICROBATCH)]
+        done = d.drain()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        ids = [r.req_id for r in done]
+        if sorted(ids) != sorted(r.req_id for r in reqs) or len(set(ids)) != len(ids):
+            fail(f"demo_mlp codec={codec!r}: requests not completed exactly once: {ids}")
+        check_served(reqs, (4096,), f"demo_mlp codec={codec!r}")
+        say("serve", f"demo_mlp(d=4096) codec={codec!r} {kw} -> codecs {list(d.plan.codecs)}: "
+                     f"{len(done)} requests completed once, finite CUDA tensors; launches {counts}")
+        if codec == "int8":
+            int8_counts = counts
+            for name in ("quantize_int8_cuda", "dequantize_int8_cuda"):
+                if counts[name] == 0:
+                    fail(f"{name} was never launched on demo_mlp's int8 hops")
+        del d, reqs, done
+    return int8_counts
 
 
 def card_vs_cpu(name: str, ctor, cfg: dict, params, shape) -> None:
@@ -876,6 +902,7 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     from repro_torch.kernels.quantize.kernel import (
         dequant_matmul_cuda,
         dequantize_int8_cuda,
+        dequantize_path,
         quantize_int8_cuda,
     )
     from repro_torch.kernels.quantize.ref import dequant_matmul_ref, dequantize_ref, quantize_ref
@@ -920,12 +947,29 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
         lambda: dequantize_int8_cuda(qs, ss, torch.float32, 256),
         lambda: dequantize_ref(qs, ss, torch.float32, 256), 50,
         qs.numel() * 5 + ss.numel() * 4, qs.numel(), 0, tuple(qs.shape))
-    del qs, ss
+    # the scalar path, the kernel as it was before the vector path, takes the
+    # same codes at an odd byte offset
+    qu = torch.empty(qs.numel() + 1, dtype=torch.int8, device="cuda")[1:].view(qs.shape)
+    qu.copy_(qs)
+    if (dequantize_path(qu, 256), dequantize_path(qs, 256)) != ("scalar", "vector"):
+        fail("dequantize_int8: the offset codes do not take the scalar path")
+    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        best = best_interleaved_ms([
+            lambda c=c, t=dtype: dequantize_int8_cuda(c, ss, t, 256) for c in (qu, qs, qs, qu)],
+            3, launches=20)
+        b_ms = bound_ms(qs.numel() * (1 + size) + ss.numel() * 4, qs.numel())[0]
+        old_ms, new_ms = min(best[0], best[3]), min(best[1], best[2])
+        say("times", f"dequantize_int8 {tuple(qs.shape)} -> {str(dtype)[6:]}, scalar (old) vs "
+                     f"vector path, interleaved best of 3 turns of 20 launches (scalar, vector, "
+                     f"vector, scalar): "
+                     + " / ".join(f"{t:.4f}" for t in best) + f" ms; bound {b_ms:.4f} ms, "
+                     f"{b_ms / old_ms:.1%} / {b_ms / new_ms:.1%} of it; {card}")
+    del qs, qu, ss
     qm, sm = quantize_int8_cuda(randn((n, d), 12), 256)  # demo_mlp's hop payload
     small = cuda_time_ms(lambda: dequantize_int8_cuda(qm, sm, torch.float32, 256), 200)
     b_ms, b_by, _ = bound_ms(qm.numel() * 5 + sm.numel() * 4, qm.numel())
-    say("times", f"dequantize_int8 {tuple(qm.shape)} (demo_mlp's hop): {small:.4f} ms, "
-                 f"bound {b_ms:.5f} ms ({b_by}); {card}")
+    say("times", f"dequantize_int8 {tuple(qm.shape)} (demo_mlp's hop, {dequantize_path(qm, 256)} "
+                 f"path): {small:.4f} ms, bound {b_ms:.5f} ms ({b_by}); {card}")
 
     w = randn((d, proj), 13, 0.3)
     rows_n = n * s

@@ -195,8 +195,7 @@ class DeploymentSpec:
         ``repro_torch.dataplane.list_codecs``).  ``"auto"`` lets the planner
         pick the throughput-maximizing codec *per link* among those whose
         reported error bound fits ``accuracy_tolerance``; ``None`` is the
-        registry default (``identity``).  Only ``identity`` and ``int8``
-        transform data so far; the others raise when a link carries data.
+        registry default (``identity``).
     accuracy_tolerance:
         per-link SLO: every inter-stage transfer's codec must report a
         round-trip error bound (relative to ``max|x|``) at most this value.

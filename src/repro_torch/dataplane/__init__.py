@@ -12,8 +12,8 @@ restores throughput.  This package is that lever as a subsystem:
     ``wire_bytes`` ratio the byte-counted simulator charges, and an
     encode/decode compute-cost model;
   * ``codecs``   -- ``identity`` / ``fp16`` / ``int8`` (backed by the
-    ``kernels/quantize`` CUDA kernels) / ``topk-sparse`` (the last two keep
-    their byte model; their transforms are not ported yet);
+    ``kernels/quantize`` CUDA kernels) / ``topk-sparse``, fp16 and
+    topk-sparse as plain torch ops on the tensor's device;
   * ``auto``     -- per-link codec selection under a per-link
     ``accuracy_tolerance``, used by the planner's joint codec x placement
     search and provably never worse than ``identity``.

@@ -7,17 +7,19 @@ them on a link:
   codec          ~ratio    error bound   mechanism
   =============  ========  ============  =======================================
   identity       1.000     0 (lossless)  raw f32 bytes
-  fp16           0.500     2^-11         float16 truncation (byte model only)
+  fp16           0.500     2^-11         float16 rounding (clamped to +-65504)
   int8           0.254     1/254         blockwise int8 (``kernels/quantize``:
                                          the CUDA kernels on a CUDA tensor,
                                          the plain version on a CPU tensor)
-  topk-sparse    0.500     1 (unbounded) top-25% magnitudes (byte model only)
+  topk-sparse    0.500     1 (unbounded) top-25% magnitudes as (index, value)
   =============  ========  ============  =======================================
 
 Ratios are for f32 activations.  Transforms take and return torch tensors
-on the tensor's own device.  ``fp16`` and ``topk-sparse`` keep their byte
-and cost model (the planner may score them) but their transforms are not
-ported yet and raise ``NotImplementedError`` when a link carries data.
+on the tensor's own device: fp16 and topk-sparse are plain torch ops there
+(XLA ops in the JAX package, not Pallas kernels), int8 runs the CUDA
+kernels on a CUDA tensor.  Each lossy codec has a ``device`` attribute:
+``configured(device=...)`` pins a copy to the deployment's device, and that
+copy refuses a tensor on any other device.
 """
 
 from __future__ import annotations
@@ -29,6 +31,17 @@ import torch
 from repro_torch.dataplane.base import Codec, _itemsize
 from repro_torch.dataplane.registry import register_codec
 from repro_torch.kernels.quantize import INT8_MAX_REL_ERROR, dequantize_int8, quantize_int8
+
+
+def _check_device(codec: Codec, x: torch.Tensor) -> None:
+    """Refuse ``x`` unless it lies on ``codec.device`` (None accepts any)."""
+    if codec.device is None:
+        return
+    want = torch.device(codec.device)
+    if x.device.type != want.type or (
+            want.index is not None and x.device.index != want.index):
+        raise ValueError(f"{codec.name} codec configured for {codec.device} got a "
+                         f"tensor on {x.device}")
 
 
 @register_codec("identity", default=True)
@@ -50,18 +63,26 @@ class IdentityCodec(Codec):
 
 @register_codec("fp16")
 class Fp16Codec(Codec):
-    """float16 truncation: half the bytes at ~2^-11 relative error."""
+    """float16 rounding: half the bytes at ~2^-11 relative error.
+
+    The bound holds within float16's finite range (|x| <= 65504); larger
+    values are clamped to the range edge on encode, never inf.  The cast
+    rounds to nearest even, as the JAX package's does, so the codes are
+    the same bits."""
 
     F16_MAX = 65504.0
     error_bound = 2.0 ** -11
     encode_flops_per_byte = 0.25  # one convert per f32 element
     decode_flops_per_byte = 0.25
+    device = None  # as Int8Codec.device
 
-    def encode(self, x):
-        raise NotImplementedError("the fp16 transform is not ported yet")
+    def encode(self, x: torch.Tensor):
+        _check_device(self, x)
+        return x.clamp(-self.F16_MAX, self.F16_MAX).to(torch.float16), x.dtype
 
     def decode(self, payload):
-        raise NotImplementedError("the fp16 transform is not ported yet")
+        y, dtype = payload
+        return y.to(dtype)
 
     def wire_ratio(self, elem_bytes: float = 4.0) -> float:
         return 2.0 / elem_bytes
@@ -82,12 +103,7 @@ class Int8Codec(Codec):
     device = None
 
     def encode(self, x: torch.Tensor):
-        if self.device is not None:
-            want = torch.device(self.device)
-            if x.device.type != want.type or (
-                    want.index is not None and x.device.index != want.index):
-                raise ValueError(f"int8 codec configured for {self.device} got a "
-                                 f"tensor on {x.device}")
+        _check_device(self, x)
         q, s = quantize_int8(x, block=self.block)
         return "torch", q, s, x.dtype
 
@@ -116,15 +132,22 @@ class TopKSparseCodec(Codec):
     error_bound = 1.0
     encode_flops_per_byte = 4.0  # selection dominates
     decode_flops_per_byte = 0.25  # scatter into zeros
+    device = None  # as Int8Codec.device
 
     def _k(self, n: int) -> int:
         return max(1, int(math.ceil(self.keep_frac * n)))
 
-    def encode(self, x):
-        raise NotImplementedError("the topk-sparse transform is not ported yet")
+    def encode(self, x: torch.Tensor):
+        _check_device(self, x)
+        flat = x.reshape(-1)
+        idx = torch.topk(flat.abs(), self._k(flat.numel()), sorted=False).indices
+        return "torch", tuple(x.shape), x.dtype, idx.to(torch.int32), flat[idx]
 
     def decode(self, payload):
-        raise NotImplementedError("the topk-sparse transform is not ported yet")
+        _, shape, dtype, idx, vals = payload
+        flat = torch.zeros(math.prod(shape), dtype=dtype, device=vals.device)
+        flat[idx] = vals
+        return flat.reshape(shape)
 
     def wire_ratio(self, elem_bytes: float = 4.0) -> float:
         return self.keep_frac * (elem_bytes + 4.0) / elem_bytes

@@ -19,6 +19,19 @@
 //   (XLA rewrites the division by a constant), the codes take an IEEE
 //   division (no --use_fast_math) and rintf, which rounds half to even like
 //   torch.round / jnp.round.
+// * dequantize writes 4 bytes (f32) for every byte it reads, so its time is
+//   its stores.  The vector path gives a warp 512 consecutive codes: each
+//   lane loads 16 of them with one 16-byte load and stages them in shared
+//   memory, then writes 4-code groups so that every store instruction of
+//   the warp covers 512 (f32) or 256 (bf16) contiguous bytes.  A lane that
+//   stores its own 16 codes' outputs instead (four float4 stores, lanes 64
+//   bytes apart) leaves every 32-byte sector of a store instruction half
+//   written, and timed far slower on an H100.  Row and scale block come
+//   from one division per 16 codes and one per 4-code group, none per
+//   element.  The scalar path (one element a thread) takes what the vector
+//   path cannot: d or block not a multiple of 16, q or out not 16-byte
+//   aligned.  Both multiply in f32 and round to bf16 to nearest even, as
+//   the plain version does, so the output is the same bits.
 // * dequant_matmul is bound by operations: 2*n*d*dout FLOPs against
 //   n*d + d*dout*4 bytes.  It runs on the TF32 tensor cores (mma.sync
 //   m16n8k8) and still holds the 1e-5 f32 pin: the int8 codes are exact in
@@ -87,7 +100,7 @@ __device__ __forceinline__ void store_as<__nv_bfloat16>(__nv_bfloat16* p, float 
   *p = __float2bfloat16(v);
 }
 
-// One thread per element: out = q * scale[row, col / block].
+// Scalar path, one thread per element: out = q * scale[row, col / block].
 template <typename T>
 __global__ void dequantize_int8_kernel(const int8_t* __restrict__ q,
                                        const float* __restrict__ s,
@@ -98,6 +111,85 @@ __global__ void dequantize_int8_kernel(const int8_t* __restrict__ q,
   const long long row = i / d;
   const int col = (int)(i % d);
   store_as<T>(out + i, (float)q[i] * s[row * nb + col / block]);
+}
+
+constexpr int DQ_THREADS = 256;
+
+__device__ __forceinline__ float code_of(int word, int byte) {
+  return (float)(int8_t)(word >> (8 * byte));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// The 4 outputs of one 4-code word at element e (16-byte aligned for f32).
+__device__ __forceinline__ void store4(float* out, size_t e, int word, float sc) {
+  *reinterpret_cast<float4*>(out + e) =
+      make_float4(code_of(word, 0) * sc, code_of(word, 1) * sc,
+                  code_of(word, 2) * sc, code_of(word, 3) * sc);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* out, size_t e, int word, float sc) {
+  *reinterpret_cast<uint2*>(out + e) =
+      make_uint2(pack_bf16x2(code_of(word, 0) * sc, code_of(word, 1) * sc),
+                 pack_bf16x2(code_of(word, 2) * sc, code_of(word, 3) * sc));
+}
+
+// Vector path.  Codes are counted in vectors of 16 (nvec of them, vpr a
+// row, vpb a quantisation block); each warp takes 32 vectors.  Lane t
+// loads vector t into shared memory; then in step j it converts the 4-code
+// word 32j + t of the warp's 512 codes, which lies in vector 8j + t/4, so
+// the warp's 32 lanes store 128 contiguous outputs per step.
+template <typename T>
+__global__ void __launch_bounds__(DQ_THREADS)
+dequantize_int8_vec_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
+                           T* __restrict__ out, unsigned nvec, unsigned vpr,
+                           unsigned vpb, unsigned nb) {
+  __shared__ int4 stage[DQ_THREADS / 32][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned v0 = (blockIdx.x * (DQ_THREADS / 32) + warp) * 32;
+  if (v0 >= nvec) return;
+  if (v0 + lane < nvec)
+    stage[warp][lane] = __ldg(reinterpret_cast<const int4*>(q) + v0 + lane);
+  __syncwarp();
+  const int* words = reinterpret_cast<const int*>(stage[warp]);
+  unsigned v = v0 + lane / 4;
+  unsigned row = v / vpr, c16 = v - row * vpr;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (v < nvec) {
+      const float sc = __ldg(s + (size_t)row * nb + c16 / vpb);
+      store4(out, (size_t)v * 16 + 4 * (lane & 3), words[32 * j + lane], sc);
+    }
+    v += 8;  // the next step's vector: 8 further on, maybe rows further
+    c16 += 8;
+    while (c16 >= vpr) {
+      c16 -= vpr;
+      ++row;
+    }
+  }
+}
+
+// The vector path takes d and block multiples of 16, q and out 16-byte
+// aligned and fewer than 2**31 vectors of 16 codes; the scalar path the rest.
+template <typename T>
+int launch_dequantize(const int8_t* q, const float* s, T* out, long long n, int d,
+                      int block, int nb, cudaStream_t st) {
+  const long long nvec = n * d / 16;
+  const bool vec = d % 16 == 0 && block % 16 == 0 && (uintptr_t)q % 16 == 0 &&
+                   (uintptr_t)out % 16 == 0 && nvec < (1ll << 31);
+  if (vec) {
+    const unsigned per_block = DQ_THREADS / 32 * 32;
+    dequantize_int8_vec_kernel<T><<<(unsigned)((nvec + per_block - 1) / per_block),
+                                    DQ_THREADS, 0, st>>>(
+        q, s, out, (unsigned)nvec, (unsigned)(d / 16), (unsigned)(block / 16),
+        (unsigned)nb);
+  } else {
+    dequantize_int8_kernel<T><<<(unsigned)((n * d + DQ_THREADS - 1) / DQ_THREADS),
+                                DQ_THREADS, 0, st>>>(q, s, out, n, d, block, nb);
+  }
+  return (int)cudaGetLastError();
 }
 
 // dequant_matmul on the tensor cores.  out (n, dout) f32 = sum over
@@ -374,16 +466,12 @@ int seifer_quantize_int8(const void* x, int x_dtype, void* q, void* s,
 int seifer_dequantize_int8(const void* q, const void* s, void* out,
                            int out_dtype, long long n, int d, int block, int nb,
                            void* stream) {
-  const int threads = 256;
-  const unsigned grid = (unsigned)((n * d + threads - 1) / threads);
+  const int8_t* qi = (const int8_t*)q;
+  const float* sf = (const float*)s;
   cudaStream_t st = (cudaStream_t)stream;
-  if (out_dtype == 0)
-    dequantize_int8_kernel<float><<<grid, threads, 0, st>>>(
-        (const int8_t*)q, (const float*)s, (float*)out, n, d, block, nb);
-  else
-    dequantize_int8_kernel<__nv_bfloat16><<<grid, threads, 0, st>>>(
-        (const int8_t*)q, (const float*)s, (__nv_bfloat16*)out, n, d, block, nb);
-  return (int)cudaGetLastError();
+  return out_dtype == 0
+             ? launch_dequantize(qi, sf, (float*)out, n, d, block, nb, st)
+             : launch_dequantize(qi, sf, (__nv_bfloat16*)out, n, d, block, nb, st);
 }
 
 int seifer_dequant_matmul(const void* q, const void* s, const void* w, void* out,

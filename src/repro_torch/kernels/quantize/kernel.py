@@ -64,11 +64,24 @@ def quantize_int8_cuda(x: torch.Tensor, block: int = 256) -> tuple[torch.Tensor,
     return q, s
 
 
+def dequantize_path(q: torch.Tensor, block: int) -> str:
+    """The path ``dequantize_int8_cuda`` takes for codes ``q`` at ``block``:
+    "vector" where d and block are multiples of 16, q is 16-byte aligned
+    (the output, fresh from ``torch.empty``, always is) and q holds fewer
+    than 2**31 vectors of 16 codes; "scalar" otherwise.  It mirrors the
+    rule ``launch_dequantize`` in csrc/quantize.cu applies, and only reports
+    it: tests and chip_smoke.py use it to name the path they drive."""
+    vector = (q.shape[-1] % 16 == 0 and block % 16 == 0 and q.data_ptr() % 16 == 0
+              and q.numel() // 16 < 2**31)
+    return "vector" if vector else "scalar"
+
+
 def dequantize_int8_cuda(
     q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16,
     block: int | None = None,
 ) -> torch.Tensor:
-    """``q * scale`` per block -> ``dtype`` (float32 or bfloat16)."""
+    """``q * scale`` per block -> ``dtype`` (float32 or bfloat16), on the
+    path ``dequantize_path(q, block)`` names."""
     if dtype not in _IN_DTYPES:
         raise TypeError(f"dequantize kernel writes float32 or bfloat16, not {dtype}")
     n, d, nb, block = _codes_layout(q, scale, block)

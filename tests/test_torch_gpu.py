@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.quantize.kernel import (
     dequant_matmul_cuda,
     dequantize_int8_cuda,
+    dequantize_path,
     quantize_int8_cuda,
 )
 from repro_torch.kernels.quantize.ref import (
@@ -68,14 +69,46 @@ def test_quantize_codes_equal_plain(cuda, shape, block, dtype):
     assert torch.equal(s, s_ref)
 
 
-@pytest.mark.parametrize("shape,block", [((3, 300), 128), ((4, 4096), 256),
-                                         ((2, 8192, 4096), 256)])
+@pytest.mark.parametrize("shape,block", [
+    ((3, 300), 128),           # d % 16 != 0: the scalar path
+    ((4, 4096), 256),          # demo_mlp's hop: the vector path, 4 blocks
+    ((2, 8192, 4096), 256),
+    ((4, 8192, 5120), 256),    # demo_ssm's hop, the served shape
+    ((5, 320), 128),           # 16-aligned with a ragged last block of 64
+    ((3, 48), 16),             # rows of 3 vectors: a warp's 32 span many rows
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dequantize_exact(cuda, shape, block, dtype):
     q, s = quantize_ref(_randn(shape, 1, cuda), block)
+    want = "vector" if shape[-1] % 16 == 0 else "scalar"
+    assert dequantize_path(q, block) == want
     out = dequantize_int8_cuda(q, s, dtype=dtype, block=block)
     torch.cuda.synchronize()
     assert torch.equal(out, dequantize_ref(q, s, dtype=dtype, block=block))
+
+
+def _unaligned_copy(q: torch.Tensor) -> torch.Tensor:
+    """q's codes at an odd byte offset: contiguous, not 16-byte aligned."""
+    buf = torch.empty(q.numel() + 1, dtype=torch.int8, device=q.device)
+    out = buf[1:].view(q.shape)
+    out.copy_(q)
+    return out
+
+
+@pytest.mark.parametrize("shape", [(3, 320), (4, 8192, 5120)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dequantize_unaligned_codes_take_the_scalar_path(cuda, shape, dtype):
+    """The same codes at an odd byte offset take the scalar path, exact;
+    at the served shape it gives the vector path's bits too."""
+    q, s = quantize_ref(_randn(shape, 5, cuda), 256)
+    qu = _unaligned_copy(q)
+    assert qu.is_contiguous() and qu.data_ptr() % 16
+    assert dequantize_path(qu, 256) == "scalar" and dequantize_path(q, 256) == "vector"
+    ref = dequantize_ref(q, s, dtype=dtype, block=256)
+    for codes in (qu, q):
+        out = dequantize_int8_cuda(codes, s, dtype=dtype, block=256)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
 
 
 def test_roundtrip_bounded(cuda):

@@ -8,7 +8,9 @@ Pins: equal plans; outputs within ``INT8_MAX_REL_ERROR`` of max|ref| -- a
 code can flip at a .5 tie between the frameworks' f32 sums, so the int8
 round-trip bound is as tight as it gets; results are ``torch.Tensor``s on
 the requested device.  Again after a ``NodeFailed`` and after a
-``VersionBumped``.
+``VersionBumped``.  demo_mlp also with fp16 (named, or picked by
+``codec="auto"`` at tolerance 1e-3) and topk-sparse hops, held to a
+tolerance derived from the codec's bound and the number of hops.
 
 Requests are constant activations (0.1, 0.2, ...), the input family
 ``benchmarks/kernel_path.py`` holds the JAX package's own e2e to this bound
@@ -86,7 +88,7 @@ def _pair(name):
     return d, jd, shape
 
 
-def _serve(d, jd, shape, n, offset):
+def _serve(d, jd, shape, n, offset, rel_tol=INT8_MAX_REL_ERROR):
     xs = [np.full(shape, 0.1 * (i + 1) + offset, np.float32) for i in range(n)]
     for x in xs:
         d.submit(torch.from_numpy(x))
@@ -101,7 +103,7 @@ def _serve(d, jd, shape, n, offset):
         assert r.result.shape == shape and torch.isfinite(r.result).all()
         ref = np.asarray(by_id[r.req_id].result)
         np.testing.assert_allclose(r.result.numpy(), ref, rtol=0,
-                                   atol=INT8_MAX_REL_ERROR * np.abs(ref).max())
+                                   atol=rel_tol * np.abs(ref).max())
 
 
 def _same_plan(d, jd):
@@ -170,6 +172,51 @@ def test_serving_metrics_match(deployed):
                 "requeued_microbatches", "retries"):
         assert m[key] == jm[key], key
     assert [h["codec"] for h in m["links"]] == [h["codec"] for h in jm["links"]]
+
+
+@pytest.mark.parametrize("codec,tolerance,want", [
+    ("fp16", None, "fp16"),
+    ("auto", 1e-3, "fp16"),  # int8's 1/254 misses 1e-3, fp16's 2^-11 holds it
+    ("topk-sparse", None, "topk-sparse"),
+])
+def test_demo_mlp_lossy_codecs_match_jax(codec, tolerance, want):
+    """demo_mlp with fp16 or topk-sparse hops, before and after a
+    ``NodeFailed``: the JAX package's plan, every request served once.
+
+    Tolerance: hops x bound of max|ref|.  Both sides encode the same values
+    to the same fp16 bits and the same index set (``test_torch_codecs.py``),
+    so they differ by the f32 order of the sums (4.9e-7 of max|ref| on
+    these inputs) and wherever that order flips a code, which moves one
+    element of one hop by one fp16 step.  topk-sparse's bound is 1 (a
+    dropped element may be as large as the kept threshold), no use as a
+    pin, so its hops are held to fp16's 2^-11.  A pin that admits a flipped
+    code also admits a hop that truncated or skipped the fp16 rounding:
+    ``test_fp16_matches_jax`` (bit-exact codes) is what catches those."""
+    from repro.dataplane import get_codec as jax_get_codec
+
+    jax_ctor, ctor, params, shape = MODELS["demo_mlp"]
+    jgraph, jexec = jax_ctor()
+    graph, ex = ctor(device="cpu", params_for_version=params)
+    cluster = dict(n_nodes=6, capacity_bytes=graph.total_param_bytes / 2.5, seed=5)
+    kw = dict(codec=codec, seed=3)
+    if tolerance is not None:
+        kw["accuracy_tolerance"] = tolerance
+    d = deploy(DeploymentSpec(model=graph, executor_for_version=ex,
+                              cluster=ClusterSpec(**cluster), device="cpu", **kw))
+    jd = jax_deploy(JaxDeploymentSpec(model=jgraph, executor_for_version=jexec,
+                                      cluster=JaxClusterSpec(**cluster), **kw))
+    _same_plan(d, jd)
+    assert d.plan.codecs == jd.plan.codecs and want in d.plan.codecs
+    hops = sum(c != "identity" for c in d.plan.codecs)
+    rel_tol = hops * min(jax_get_codec(want).error_bound, 2.0 ** -11)
+    _serve(d, jd, (32,), 5, offset=0.0, rel_tol=rel_tol)
+    victim = d.control.pipeline.pods[1].node_id
+    d.inject(NodeFailed(victim))
+    jd.inject(JaxNodeFailed(victim))
+    assert [a.kind for a in d.reconcile()] == [a.kind for a in jd.reconcile()]
+    _same_plan(d, jd)
+    _serve(d, jd, (32,), 3, offset=0.03, rel_tol=rel_tol)
+    assert d.metrics()["serving"]["completed"] == jd.metrics()["serving"]["completed"] == 8
 
 
 def test_unported_fields_rejected():

@@ -52,18 +52,35 @@ def _jax(arrays):
     return [jnp.asarray(a) for a in arrays]
 
 
-@pytest.mark.parametrize("dims", DIMS)
-def test_plain_matches_jax_ref_and_pallas_interpret(dims):
+def _slow_cases(dims):
+    """Each case as it was, then again with dt x 0.01 (``-slow``): with the
+    plain dt (softplus, a ~ -1) a chunk of 64 decays the carried state by
+    ~e^-58, so ``state * exp(cum_last)`` is ~0 and the inter-chunk terms go
+    untested; at dt / 100 the state reaches every later chunk."""
+    return ([pytest.param(d, 1.0, id=f"dims{i}") for i, d in enumerate(dims)]
+            + [pytest.param(d, 0.01, id=f"dims{i}-slow") for i, d in enumerate(dims)])
+
+
+def _assert_close(got, want, what: str, case) -> None:
+    """assert_allclose at the 1e-5 pin, naming the comparison and the case."""
+    diff = float(np.abs(got - want).max())
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5,
+                               err_msg=f"{what} at {case}: max-abs {diff:.3g}")
+
+
+@pytest.mark.parametrize("dims,dt_scale", _slow_cases(DIMS))
+def test_plain_matches_jax_ref_and_pallas_interpret(dims, dt_scale):
     *shape, chunk = dims
-    arrays = _inputs(*shape)
+    xs, bm, cm, dt, a = _inputs(*shape)
+    arrays = (xs, bm, cm, dt * np.float32(dt_scale), a)
     y, state = ssd_ref(*_torch(arrays), chunk=chunk)
     y_ref, h_ref = jax_ssd_ref(*_jax(arrays), chunk=chunk)
     y_pal = jax_ssd_chunked(*_jax(arrays), chunk=chunk, use_pallas=True, interpret=True)
     assert isinstance(y, torch.Tensor) and y.dtype == torch.float32
-    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-5, rtol=1e-5)
-    np.testing.assert_allclose(y.numpy(), np.asarray(y_pal), atol=1e-5, rtol=1e-5)
-    # the final state, against ssd_ref's hT
-    np.testing.assert_allclose(state.numpy(), np.asarray(h_ref), atol=1e-5, rtol=1e-5)
+    case = (dims, dt_scale)
+    _assert_close(y.numpy(), np.asarray(y_ref), "y vs the JAX ssd_ref", case)
+    _assert_close(y.numpy(), np.asarray(y_pal), "y vs the JAX Pallas kernel (interpret)", case)
+    _assert_close(state.numpy(), np.asarray(h_ref), "the final state vs ssd_ref's hT", case)
 
 
 @pytest.mark.parametrize("dims", DIMS)
@@ -161,16 +178,18 @@ def test_segmented_matches_plain_scan(dims, slow):
     assert _max_rel(y, ref) <= 1e-6
 
 
-@pytest.mark.parametrize("dims", [(2, 256, 4, 64, 32, 64, 2), (1, 512, 8, 64, 64, 128, 4),
-                                  (1, 192, 2, 64, 16, 64, 3)])
-def test_segmented_matches_jax_ref_and_pallas_interpret(dims):
+@pytest.mark.parametrize("dims,dt_scale", _slow_cases(
+    [(2, 256, 4, 64, 32, 64, 2), (1, 512, 8, 64, 64, 128, 4), (1, 192, 2, 64, 16, 64, 3)]))
+def test_segmented_matches_jax_ref_and_pallas_interpret(dims, dt_scale):
     *shape, chunk, segments = dims
-    arrays = _inputs(*shape, seed=8)
+    xs, bm, cm, dt, a = _inputs(*shape, seed=8)
+    arrays = (xs, bm, cm, dt * np.float32(dt_scale), a)
     y = ssd_ref_segmented(*_torch(arrays), chunk=chunk, segments=segments).numpy()
     y_ref, _ = jax_ssd_ref(*_jax(arrays), chunk=chunk)
     y_pal = jax_ssd_chunked(*_jax(arrays), chunk=chunk, use_pallas=True, interpret=True)
-    np.testing.assert_allclose(y, np.asarray(y_ref), atol=1e-5, rtol=1e-5)
-    np.testing.assert_allclose(y, np.asarray(y_pal), atol=1e-5, rtol=1e-5)
+    case = (dims, dt_scale)
+    _assert_close(y, np.asarray(y_ref), "segmented y vs the JAX ssd_ref", case)
+    _assert_close(y, np.asarray(y_pal), "segmented y vs the JAX Pallas kernel (interpret)", case)
 
 
 def test_segmented_strong_decay_stays_finite():
