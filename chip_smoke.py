@@ -43,7 +43,24 @@ the first fault:
    the card and on the CPU (the plain versions, which the CPU tests hold to
    the JAX package) with the same weights: outputs within
    INT8_MAX_REL_ERROR of max|ref|.
-9. times  -- each kernel (CUDA events, after warm-up, mean over launches)
+9. replicas -- the serving branches beside one pipeline, at full width:
+   demo_transformer at phase 4's width served ``serving="sync"`` and
+   pipelined from one spec, whose outputs must be ``torch.equal``; demo_ssm
+   (phase 6's model, weights and int8 hops) with ``replicas=2`` on a
+   12-node cluster, every span traced, 16 open-loop Poisson arrivals
+   through ``submit_trace``, a ``NodeFailed`` on a node of replica 0 (which
+   re-places it alone: replica 1's path holds), then version 1 published
+   and rolled one replica at a time by ``poll_model_updates`` under 8 more
+   requests, and 2 more whose inputs version 0 served (the outputs must
+   differ); and the same model autoscaled from 1 to 2 replicas under a
+   bursty trace (a ``grow`` event recorded).  Every request completes once
+   as a finite CUDA tensor, the spans cover every completed request and
+   the attribution's fractions sum to 1; the SSD scan, quantize,
+   dequantize, dequant_matmul and flash kernels are launched.  Prints wall
+   time per request of each run and the virtual clock's throughputs (one
+   card runs the replicas in turn, so only the virtual clock models the
+   cluster).
+10. times -- each kernel (CUDA events, after warm-up, mean over launches)
    beside its bound, its plain version's time and yardsticks the port never
    calls: for flash attention (global and windowed layers, each a row) the
    one PyTorch call that computes it, FlexAttention under ``torch.compile``
@@ -64,7 +81,8 @@ the first fault:
    its segments P, the FLOPs and bytes of the segmented design (state pass
    and folds counted) and its time unsegmented (P=1) against P.
 
-The last two lines are a JSON object of the kernels and the device line.
+The last three lines are a JSON object of the kernels, the card's name and
+power limit, and the device line.
 Weights and requests are random, drawn from fixed seeds.
 
 ``python3 chip_smoke.py --profile`` also serves one more demo_transformer
@@ -81,6 +99,7 @@ traffic): the ceiling of the route the tensor-core kernels take.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -873,6 +892,247 @@ def phase_reference():
                 (small_ssm["seq"], small_ssm["d"]))
 
 
+# phase 9: replicated (demo_ssm, open-loop Poisson, traced), autoscaled
+# (demo_ssm, bursty) and synchronous (demo_transformer) serving
+REPLICATED_ARRIVALS = 16
+POISSON = dict(rate=0.15, duration_s=200.0, seed=7)  # arrivals/s on the virtual clock
+BURSTY = dict(rate=0.3, duration_s=120.0, seed=3)
+AUTOSCALED_ARRIVALS = (24, 32)  # at least, at most
+
+
+def drain_with_kill(d, after: int, replica: int):
+    """Serve until idle; once ``after`` requests have completed, fail the
+    second stage's node of ``replica``.  Returns the failed node."""
+    from repro_torch.cluster import NodeFailed
+
+    victim = None
+    for _ in range(100_000):
+        if victim is None and len(d.loop.completed) >= after:
+            victim = d.replicaset.controls[replica].pipeline.pods[1].node_id
+            d.inject(NodeFailed(victim))
+        if not (d.loop.backlog or d.loop.pending_arrivals or d.pending):
+            return victim
+        d.step()
+    fail("the replicated deploy did not drain")
+
+
+def release() -> None:
+    """Free what a deleted deployment held on the card: a ``Deployment``
+    sits in reference cycles (the journal's clock is a closure over its
+    loop), so its tensors go only when the cycle collector runs."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def first_arrivals(arrival, least: int, most: int):
+    """The spec's seeded trace (``ArrivalSpec``) cut to its first ``most``
+    arrivals; fails when it has fewer than ``least``."""
+    from repro_torch.workload import make_trace
+
+    trace = make_trace(arrival.trace, rate=arrival.rate, duration_s=arrival.duration_s,
+                       seed=arrival.seed)
+    if trace.n < least:
+        fail(f"the {arrival.trace} trace has {trace.n} arrivals, fewer than {least}")
+    return dataclasses.replace(trace, arrivals=trace.arrivals[:most])
+
+
+def check_once(what: str, d, reqs, shape) -> None:
+    """Every request completed exactly once, none failed, each a finite CUDA
+    tensor of ``shape``."""
+    ids = [r.req_id for r in d.loop.completed]
+    want = sorted(r.req_id for r in reqs)
+    if len(set(ids)) != len(ids) or not set(want) <= set(ids) or d.loop.failed:
+        fail(f"{what}: requests not completed exactly once ({len(d.loop.failed)} failed)")
+    check_served(reqs, shape, what)
+
+
+def serve_replicated(card: str, graph, ex) -> None:
+    import torch
+
+    from repro_torch.api import ArrivalSpec, ClusterSpec, DeploymentSpec, TraceConfig, deploy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    arrival = ArrivalSpec("poisson", **POISSON)
+    d = deploy(DeploymentSpec(
+        model=graph, executor_for_version=ex, codec="int8", seed=3, replicas=2,
+        microbatch=MICROBATCH, trace=TraceConfig(sample=1.0), arrival=arrival,
+        cluster=ClusterSpec(n_nodes=12, capacity_bytes=graph.total_param_bytes / 2.5, seed=5),
+        device="cuda"))
+    plan, rset = d.plan, d.replicaset
+    if plan.n_replicas != 2 or any("int8" not in p.codecs for p in plan.replicas):
+        fail(f"replicated demo_ssm: want 2 replicas with int8 hops, got {plan.summary()}")
+    say("replicas", f"demo_ssm replicas=2: groups {[list(g) for g in plan.groups]}, paths "
+                    f"{[list(p.path) for p in plan.replicas]}, codecs "
+                    f"{[list(p.codecs) for p in plan.replicas]}")
+    trace = first_arrivals(arrival, REPLICATED_ARRIVALS, REPLICATED_ARRIVALS)
+    shape = (SSM["seq"], SSM["d"])
+    draw = lambda i, a: randn(shape, 1100 + i, 0.5)  # noqa: E731
+    path1 = list(rset.controls[1].pipeline.path())
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = d.submit_trace(trace, draw)
+    victim = drain_with_kill(d, 4, 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check_once("replicated demo_ssm", d, reqs, shape)
+    kinds = [[a.kind for a in c.history] for c in rset.controls]
+    if victim in rset.controls[0].pipeline.path() or "replace" not in kinds[0]:
+        fail(f"NodeFailed({victim}) did not re-place replica 0: {kinds}")
+    if list(rset.controls[1].pipeline.path()) != path1 or kinds[1]:
+        fail(f"NodeFailed({victim}) on replica 0 moved replica 1: {kinds}")
+    if {r.replica for r in d.loop.completed} != {0, 1}:
+        fail("a replica completed no request")
+    for name in ("ssd_chunked_cuda", "quantize_int8_cuda", "dequantize_int8_cuda"):
+        if counts[name] == 0:
+            fail(f"{name} was never launched by the replicated demo_ssm")
+    traced = {ev["tid"] for ev in d.chrome_trace()["traceEvents"] if ev["ph"] == "X"}
+    fractions = d.attribution()["fractions"]
+    if not {r.req_id for r in d.loop.completed} <= traced:
+        fail("a completed request has no span in the chrome trace")
+    if abs(sum(fractions.values()) - 1.0) > 1e-6:
+        fail(f"attribution fractions sum to {sum(fractions.values())}")
+    say("replicas", f"{len(reqs)} Poisson arrivals, NodeFailed({victim}) after 4: replica 0 "
+                    f"{kinds[0]}, path now {list(rset.controls[0].pipeline.path())}; replica 1 "
+                    f"path {path1} unchanged; dispatched {d.loop.dispatched}; every request "
+                    f"completed once, finite CUDA tensors {shape}; spans cover all, attribution "
+                    f"{ {k: round(v, 4) for k, v in fractions.items()} }; launches {counts}")
+    say("replicas", f"replicated demo_ssm wall time per request {wall / len(reqs) * 1e3:.2f} ms "
+                    f"({len(reqs)} requests in {wall:.2f} s); virtual clock: steady-state "
+                    f"{d.loop.steady_state_throughput():.4f} req/s beside the plan's predicted "
+                    f"{plan.predicted_throughput:.4f} req/s (one card runs the replicas in "
+                    f"turn: only the virtual clock models the cluster); {card}")
+
+    v0 = {r.req_id: r.result for r in reqs[:2]}
+    d.store.publish(1)
+    if not d.poll_model_updates():
+        fail("poll_model_updates() saw no new version after publish(1)")
+    more = [d.submit(randn(shape, 1200 + i, 0.5)) for i in range(8)]
+    d.drain()
+    versions = [o.version for o in d.observed_replicas()]
+    if versions != [1, 1] or d.pending:
+        fail(f"the rollout did not bring every replica to version 1: {versions}")
+    again = [d.submit(randn(shape, 1100 + i, 0.5)) for i in range(2)]
+    d.drain()
+    check_once("demo_ssm during and after the rollout", d, reqs + more + again, shape)
+    diffs = [(r.result - v0[reqs[i].req_id]).abs().max().item() for i, r in enumerate(again)]
+    if not all(x > 1e-3 for x in diffs):
+        fail(f"version 1 served version 0's outputs: max-abs differences {diffs}")
+    rollout = [(r.detail["replica"], r.detail["phase"]) for r in d.journal.records
+               if r.kind == "rollout"]
+    say("replicas", f"version 1 rolled out {rollout}: replicas at {versions}; 8 requests "
+                    f"served through the rollout, 2 repeated inputs differ from version 0 by "
+                    f"{', '.join(f'{x:.3g}' for x in diffs)} max-abs")
+    del d, reqs, more, again, v0
+    release()
+
+
+def serve_autoscaled(card: str, graph, ex) -> None:
+    import torch
+
+    from repro_torch.api import ArrivalSpec, AutoscaleSpec, ClusterSpec, DeploymentSpec, deploy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    arrival = ArrivalSpec("bursty", **BURSTY)
+    d = deploy(DeploymentSpec(
+        model=graph, executor_for_version=ex, codec="int8", seed=3, microbatch=MICROBATCH,
+        arrival=arrival, autoscale=AutoscaleSpec(min_replicas=1, max_replicas=2,
+                                                 backlog_high=6.0, backlog_low=1.0),
+        cluster=ClusterSpec(n_nodes=12, capacity_bytes=graph.total_param_bytes / 2.5, seed=5),
+        device="cuda"))
+    trace = first_arrivals(arrival, *AUTOSCALED_ARRIVALS)
+    shape = (SSM["seq"], SSM["d"])
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = d.submit_trace(trace, lambda i, a: randn(shape, 1400 + i, 0.5))
+    d.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check_once("autoscaled demo_ssm", d, reqs, shape)
+    events = [e.summary() for e in d.autoscaler.events]
+    if not any(e["action"] == "grow" for e in events):
+        fail(f"the autoscaler recorded no grow under the bursty trace: {events}")
+    for name in ("ssd_chunked_cuda", "quantize_int8_cuda", "dequantize_int8_cuda"):
+        if counts[name] == 0:
+            fail(f"{name} was never launched by the autoscaled demo_ssm")
+    say("replicas", f"autoscaled demo_ssm, {len(reqs)} bursty arrivals: scale events "
+                    f"{[(e['action'], e['replica'], round(e['t_s'], 2)) for e in events]}, "
+                    f"{len(d.loop.loops)} replicas, every request completed once; launches "
+                    f"{counts}")
+    say("replicas", f"autoscaled demo_ssm wall time per request {wall / len(reqs) * 1e3:.2f} ms; "
+                    f"virtual clock: steady-state {d.loop.steady_state_throughput():.4f} req/s "
+                    f"(one card runs the replicas in turn); {card}")
+    del d, reqs
+    release()
+
+
+def serve_sync(card: str) -> None:
+    """demo_transformer through the synchronous loop and the pipelined
+    engine from one spec: the same plan, the same outputs bit for bit."""
+    import torch
+
+    from repro_torch.api import ClusterSpec, DeploymentSpec, deploy
+    from repro_torch.core.model_zoo import demo_transformer
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    graph, ex = demo_transformer(**SERVED, device="cuda")
+    shape = (SERVED["seq"], SERVED["d"])
+    xs = [randn(shape, 1300 + i, 0.5) for i in range(MICROBATCH)]
+    runs = {}
+    for serving in ("sync", "pipelined"):
+        d = deploy(DeploymentSpec(
+            model=graph, executor_for_version=ex, codec="int8", seed=3, serving=serving,
+            microbatch=MICROBATCH, device="cuda",
+            cluster=ClusterSpec(n_nodes=6, capacity_bytes=graph.total_param_bytes / 2.5, seed=5)))
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [d.submit(x) for x in xs]
+        d.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        check_once(f"demo_transformer serving={serving!r}", d, reqs, shape)
+        runs[serving] = (d.plan.summary(), [r.result for r in reqs], d.loop.metrics(), wall)
+        say("replicas", f"demo_transformer serving={serving!r} ({type(d.loop).__name__}): "
+                        f"{len(reqs)} requests, wall time per request "
+                        f"{wall / len(reqs) * 1e3:.1f} ms; virtual clock "
+                        f"{d.loop.clock_s:.3f} s; launches {counts}; {card}")
+        if serving == "sync":
+            for name in ("quantize_int8_cuda", "dequant_matmul_cuda", "flash_attention_cuda"):
+                if counts[name] == 0:
+                    fail(f"{name} was never launched by the sync demo_transformer")
+        del d, reqs
+    (plan, outs, _, _), (pplan, pouts, _, _) = runs["sync"], runs["pipelined"]
+    if plan != pplan:
+        fail("sync and pipelined deploys of one spec planned differently")
+    if not all(torch.equal(a, b) for a, b in zip(outs, pouts)):
+        worst = max((a - b).abs().max().item() for a, b in zip(outs, pouts))
+        fail(f"sync and pipelined outputs differ (max-abs {worst:.3g})")
+    say("replicas", f"demo_transformer sync and pipelined: the same plan {plan['path']}, "
+                    f"outputs torch.equal for all {len(outs)} requests")
+    del runs, outs, pouts, xs
+    release()
+
+
+def phase_replicas(card: str) -> None:
+    from repro_torch.core.model_zoo import demo_ssm
+
+    # the sync demo_transformer first: phase 10's first timing (quantize) ran
+    # 10% slow for ~30 ms right after its GEMMs (the card's clocks recovering)
+    serve_sync(card)
+    graph, ex = demo_ssm(**SSM, device="cuda", params_for_version=ssm_params)
+    serve_replicated(card, graph, ex)
+    serve_autoscaled(card, graph, ex)
+
+
 def flex_attention_yardstick(q, k, v, window: int, softcap: float):
     """FlexAttention under ``torch.compile`` on (B, H, S, hd) copies of q, k,
     v: the softcap as ``score_mod``, causal (and the window) as a
@@ -1137,6 +1397,7 @@ def main() -> None:
     counts_ssm, per_request_ssm = phase_serve_ssm()
     phase_serve_tenants()
     phase_reference()
+    phase_replicas(card)
     launches = {
         "quantize_int8": counts_tf["quantize_int8_cuda"],
         "dequant_matmul": counts_tf["dequant_matmul_cuda"],

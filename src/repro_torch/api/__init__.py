@@ -11,12 +11,14 @@ The one-facade entry point to the PyTorch port of the SEIFER reproduction:
     d.submit(x); d.step()     # serve
     d.inject(NodeFailed(3))   # churn
     d.reconcile()             # converge
+    d.replan(placer="greedy") # swap a strategy on the live deployment
 
 Layers: ``registry`` (named strategies, self-registered from
 ``repro_torch.core``), ``spec`` (frozen validated description of model +
-cluster + strategies + SLOs + device), ``planner`` (spec -> ``Plan``:
-partition + placement + predicted metrics), ``deploy`` (``Deployment``
-facade owning dispatcher + control plane + serving loop).
+cluster + strategies + serving + SLOs + device), ``planner`` (spec ->
+``Plan``, or ``ReplicatedPlan`` for R pipelines: partition + placement +
+predicted metrics), ``deploy`` (``Deployment`` facade owning dispatcher +
+control plane(s) + serving loop).
 
 Everything except the registry is imported lazily (PEP 562): the core
 algorithm modules import ``repro_torch.api.registry`` at definition time to
@@ -38,14 +40,22 @@ from repro_torch.api.registry import (
 )
 
 _LAZY = {
+    "ArrivalSpec": "repro_torch.api.spec",
+    "AutoscaleSpec": "repro_torch.api.spec",
     "ClusterSpec": "repro_torch.api.spec",
     "DeploymentSpec": "repro_torch.api.spec",
     "InfeasibleSpecError": "repro_torch.api.spec",
     "SLOClass": "repro_torch.api.spec",
     "SpecIssue": "repro_torch.api.spec",
     "TenantSpec": "repro_torch.api.spec",
+    "TraceConfig": "repro_torch.obs.trace",
+    "as_tenants": "repro_torch.api.spec",
+    "validate_tenants": "repro_torch.api.spec",
     "Plan": "repro_torch.api.planner",
     "Planner": "repro_torch.api.planner",
+    "ReplicatedPlan": "repro_torch.api.planner",
+    "split_cluster": "repro_torch.api.planner",
+    "subcluster": "repro_torch.api.planner",
     "Deployment": "repro_torch.api.deploy",
     "deploy": "repro_torch.api.deploy",
 }

@@ -3,16 +3,16 @@
 A spec names *what* to deploy (a ``LayerGraph`` or a model-zoo name), *where*
 (a ``ClusterSpec``: explicit ``CommGraph`` or a seeded random wireless
 cluster), *how* (strategy names from the registry, compression, bandwidth
-classes, the compute ``device``), and *how well* (optional SLOs).
-``validate()`` returns structured ``SpecIssue``s explaining *why* a spec is
-unusable -- an unknown strategy name, a single layer that exceeds node
-capacity, a model that cannot fit the cluster, a field this port does not
-serve yet -- instead of letting the failure surface deep in the solver.
+classes, the compute ``device``), *how it serves* (synchronous or pipelined,
+replicas or an autoscaler, open-loop arrivals, span tracing), and *how well*
+(optional SLOs).  ``validate()`` returns structured ``SpecIssue``s explaining
+*why* a spec is unusable -- an unknown strategy name, a single layer that
+exceeds node capacity, a model that cannot fit the cluster, a CUDA device
+that is not there -- instead of letting the failure surface deep in the
+solver.
 
-The fields keep the JAX package's names and defaults.  Those whose serving
-branch is not ported yet (``serving="sync"``, ``replicas``, ``arrival``,
-``autoscale``, ``trace``) are rejected with a ``not_ported`` issue when set
-to anything but their default.
+The fields keep the JAX package's names, defaults and cross-field checks;
+``device`` takes the place of its ``use_pallas``/``interpret`` knob.
 
 ``TenantSpec`` wraps a ``DeploymentSpec`` with a tenant's quota for
 multi-tenant serving on one shared cluster (``deploy([...])``).
@@ -28,6 +28,7 @@ import torch
 from repro_torch.api.registry import UnknownStrategyError, get_strategy
 from repro_torch.core.graph import LayerGraph
 from repro_torch.core.placement import CommGraph
+from repro_torch.obs.trace import TraceConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,8 +110,7 @@ class SLOClass:
     ``priority`` orders continuous-batch admission (higher drains first);
     ``target_latency_s`` is the class's admit-to-complete target, reported
     as attainment in the latency metrics (``None`` = best-effort);
-    ``weight`` is the class's share of generated trace traffic (kept for
-    the JAX package's spec; open-loop traces are not ported yet).
+    ``weight`` is the class's share of generated trace traffic.
     """
 
     name: str
@@ -134,6 +134,100 @@ class SLOClass:
                 "bad_slo_class",
                 f"SLO class {self.name!r}: weight must be > 0, "
                 f"got {self.weight!r}"))
+        return tuple(issues)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArrivalSpec:
+    """Open-loop offered load: a seeded trace of request arrival times.
+
+    ``trace`` is a registered generator name (``repro_torch.workload``:
+    ``poisson`` / ``diurnal`` / ``bursty`` / ``heavy-tailed``); ``rate`` is
+    the mean arrivals/s on the virtual clock over ``duration_s``.  The
+    trace seed is separate from the planning seed so load and placement
+    randomness vary independently.
+    """
+
+    trace: str = "poisson"
+    rate: float = 100.0
+    duration_s: float = 10.0
+    seed: int = 0
+
+    def validate(self) -> tuple[SpecIssue, ...]:
+        from repro_torch.workload import UnknownTraceError, get_trace_generator
+
+        issues = []
+        try:
+            get_trace_generator(self.trace)
+        except UnknownTraceError as e:
+            issues.append(SpecIssue("unknown_trace", str(e.args[0])))
+        if self.rate <= 0:
+            issues.append(SpecIssue(
+                "bad_arrival", f"rate must be > 0 arrivals/s, got {self.rate!r}"))
+        if self.duration_s <= 0:
+            issues.append(SpecIssue(
+                "bad_arrival", f"duration_s must be > 0, got {self.duration_s!r}"))
+        return tuple(issues)
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoscaleSpec:
+    """Load-driven replica scaling policy (``cluster.autoscale.Autoscaler``).
+
+    ``deploy()`` plans the widest feasible replica split, activates
+    ``min_replicas`` groups, and parks the rest as standby capacity the
+    autoscaler grows into when per-replica backlog crosses ``backlog_high``
+    (or recent p99 drifts past ``target_p99_s``) and shrinks out of below
+    ``backlog_low``.  ``max_replicas="auto"`` means every plannable group.
+    """
+
+    min_replicas: int = 1
+    max_replicas: int | str = "auto"
+    backlog_high: float = 16.0
+    backlog_low: float = 2.0
+    target_p99_s: float | None = None
+    cooldown_s: float = 0.5
+    window: int = 32
+
+    def validate(self) -> tuple[SpecIssue, ...]:
+        issues = []
+        if not isinstance(self.min_replicas, int) or self.min_replicas < 1:
+            issues.append(SpecIssue(
+                "bad_autoscale",
+                f"min_replicas must be an int >= 1, got {self.min_replicas!r}"))
+        if self.max_replicas != "auto" and not (
+            isinstance(self.max_replicas, int)
+            and not isinstance(self.max_replicas, bool)
+            and self.max_replicas >= 1
+        ):
+            issues.append(SpecIssue(
+                "bad_autoscale",
+                f"max_replicas must be an int >= 1 or 'auto', "
+                f"got {self.max_replicas!r}"))
+        elif (isinstance(self.max_replicas, int)
+              and isinstance(self.min_replicas, int)
+              and self.max_replicas < self.min_replicas):
+            issues.append(SpecIssue(
+                "bad_autoscale",
+                f"max_replicas ({self.max_replicas}) < min_replicas "
+                f"({self.min_replicas})"))
+        if self.backlog_low >= self.backlog_high:
+            issues.append(SpecIssue(
+                "bad_autoscale",
+                f"backlog_low ({self.backlog_low!r}) must be below "
+                f"backlog_high ({self.backlog_high!r}) or scaling oscillates"))
+        if self.target_p99_s is not None and self.target_p99_s <= 0:
+            issues.append(SpecIssue(
+                "bad_autoscale",
+                f"target_p99_s must be > 0, got {self.target_p99_s!r}"))
+        if self.cooldown_s < 0:
+            issues.append(SpecIssue(
+                "bad_autoscale",
+                f"cooldown_s must be >= 0, got {self.cooldown_s!r}"))
+        if not isinstance(self.window, int) or self.window < 1:
+            issues.append(SpecIssue(
+                "bad_autoscale",
+                f"window must be an int >= 1, got {self.window!r}"))
         return tuple(issues)
 
 
@@ -162,17 +256,6 @@ def _resolve_model(model, *, device="cuda") -> tuple[LayerGraph, Callable | None
     raise KeyError(model)
 
 
-# field -> default: the JAX package's serving branches this port does not
-# serve yet; a spec setting any of them to another value is rejected
-NOT_PORTED_FIELDS = {
-    "serving": "pipelined",
-    "replicas": 1,
-    "arrival": None,
-    "autoscale": None,
-    "trace": None,
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class DeploymentSpec:
     """Everything ``deploy()`` needs, declared up front.
@@ -186,19 +269,22 @@ class DeploymentSpec:
         ``ClusterSpec`` (or a raw ``CommGraph``, wrapped automatically).
     capacity:
         per-node memory cap handed to the partitioner; ``None`` uses the
-        cluster's max node capacity.
+        cluster's max node capacity (the dispatcher's historical default).
     compression_ratio:
         boundary compression (paper: ZFP/LZ4; ours: int8 analogue).
     codec:
         inter-stage transfer codec, by registry name (``identity`` /
         ``fp16`` / ``int8`` / ``topk-sparse``; see
-        ``repro_torch.dataplane.list_codecs``).  ``"auto"`` lets the planner
-        pick the throughput-maximizing codec *per link* among those whose
+        ``repro_torch.dataplane.list_codecs``).  ``"auto"`` lets the planner pick
+        the throughput-maximizing codec *per link* among those whose
         reported error bound fits ``accuracy_tolerance``; ``None`` is the
-        registry default (``identity``).
+        registry default (``identity``, the historical raw wire).
     accuracy_tolerance:
         per-link SLO: every inter-stage transfer's codec must report a
         round-trip error bound (relative to ``max|x|``) at most this value.
+        ``None`` means unconstrained.  A named lossy ``codec`` that exceeds
+        the tolerance is a validation error; ``"auto"`` simply drops the
+        over-tolerance candidates (``identity`` is always admissible).
     partitioner / placer:
         registry names; ``None`` means the registered default.
     joint:
@@ -213,26 +299,54 @@ class DeploymentSpec:
         model's own executor (the demo models) or a pass-through executor
         (timing-only simulation).
     microbatch:
-        admission batch size of the pipelined serving engine.
+        serving-loop admission batch size.
+    serving:
+        ``"pipelined"`` (default) serves through the discrete-event engine
+        (``cluster.engine.PipelinedServingLoop``: every partition advances
+        independently, throughput = bottleneck rate); ``"sync"`` uses the
+        synchronous baseline loop (one microbatch through the whole chain
+        per round, throughput = 1 / end-to-end time).
     queue_depth:
-        bound on each stage's in-queue (backpressure).
+        pipelined mode only: bound on each stage's in-queue (backpressure).
+    replicas:
+        pipeline replica count.  ``1`` (default) plans one pipeline over the
+        whole cluster; an int R partitions the hosting nodes into R disjoint
+        sub-clusters and serves one data-parallel pipeline per sub-cluster
+        behind a cluster-wide router; ``"auto"`` picks the R maximizing the
+        summed predicted throughput.  Replicated serving always uses the
+        pipelined engine.
     max_batch:
         continuous batching: coalesce up to this many queued requests into
-        one microbatch per admission.  ``None`` keeps ``microbatch``.
+        one microbatch per admission (pipelined engine only).  ``None``
+        keeps the fixed ``microbatch`` admission target.
     admission_depth:
-        open-loop admission bound: a ``schedule``d arrival that finds this
-        many requests queued is rejected (load shedding); ``None`` admits
-        everything.
+        open-loop admission bound: arrivals past this queue depth are
+        rejected (load shedding) instead of queueing without bound.
+        ``None`` = unbounded (the closed-loop default).
     slo_classes:
-        request latency classes (``SLOClass``): batch-admission priority and
-        per-class latency targets (reported as attainment).
+        request latency classes (``SLOClass``): batch-admission priority,
+        per-class latency targets (reported as attainment), and trace
+        traffic weights.
+    arrival:
+        open-loop offered load (``ArrivalSpec``): a seeded arrival-time
+        trace served by timestamp on the virtual clock.  ``None`` keeps
+        closed-loop ``submit()`` serving.
+    autoscale:
+        load-driven replica scaling (``AutoscaleSpec``): grow/retire
+        replicas from observed backlog + p99 drift.  Mutually exclusive
+        with an explicit ``replicas`` count (the autoscaler owns R).
+    trace:
+        per-request span tracing (``repro_torch.obs.TraceConfig``): every sampled
+        request carries a span timeline (queue / exec / encode / wire /
+        decode) on the virtual clock, exposed via ``Deployment.tracer`` and
+        the critical-path analyzer.  ``True`` is shorthand for the default
+        config (sample=1.0); ``None`` (default) disables tracing with zero
+        serving-path overhead.
     device:
         where the stage executors and codecs compute: ``"cuda"`` (default)
         runs the hand-written kernels, ``"cpu"`` their plain versions.
-        It replaces the JAX package's ``use_pallas``/``interpret`` knob.
-    serving / replicas / arrival / autoscale / trace:
-        the JAX package's fields for branches not ported yet; only their
-        defaults are accepted.
+        It replaces the JAX package's ``use_pallas``/``interpret`` knob;
+        every replica of a replicated deployment computes there too.
     """
 
     model: Any
@@ -256,9 +370,9 @@ class DeploymentSpec:
     max_batch: int | None = None
     admission_depth: int | None = None
     slo_classes: tuple[SLOClass, ...] | None = None
-    arrival: Any = None
-    autoscale: Any = None
-    trace: Any = None
+    arrival: ArrivalSpec | None = None
+    autoscale: AutoscaleSpec | None = None
+    trace: TraceConfig | None = None
     device: str = "cuda"
 
     def __post_init__(self) -> None:
@@ -266,6 +380,10 @@ class DeploymentSpec:
             object.__setattr__(self, "cluster", ClusterSpec(comm=self.cluster))
         if isinstance(self.slo_classes, (list, tuple)):
             object.__setattr__(self, "slo_classes", tuple(self.slo_classes))
+        if self.autoscale is True:  # shorthand: default policy
+            object.__setattr__(self, "autoscale", AutoscaleSpec())
+        if self.trace is True:  # shorthand: trace everything
+            object.__setattr__(self, "trace", TraceConfig())
 
     # -- SLO-class views ------------------------------------------------------
     def class_priority(self) -> dict[str, int]:
@@ -313,15 +431,6 @@ class DeploymentSpec:
         planner (``Plan.slo_issues``) after prediction.
         """
         issues: list[SpecIssue] = []
-
-        for name, default in NOT_PORTED_FIELDS.items():
-            value = getattr(self, name)
-            if value != default:
-                issues.append(SpecIssue(
-                    "not_ported",
-                    f"{name}={value!r}: that serving branch is not ported to "
-                    f"the torch package yet (only {name}={default!r})",
-                ))
 
         # strategy names exist in the registry
         for kind, name in (("partitioner", self.partitioner),
@@ -395,8 +504,15 @@ class DeploymentSpec:
                     f"use codec='auto' to let the planner pick within it",
                 ))
 
+        if self.serving not in ("pipelined", "sync"):
+            issues.append(SpecIssue(
+                "bad_serving",
+                f"serving must be 'pipelined' or 'sync', got {self.serving!r}",
+            ))
         if self.queue_depth < 1:
             issues.append(SpecIssue("bad_serving", "queue_depth must be >= 1"))
+
+        # heavy-traffic serving knobs
         if self.max_batch is not None and (
             not isinstance(self.max_batch, int)
             or isinstance(self.max_batch, bool) or self.max_batch < 1
@@ -430,6 +546,71 @@ class DeploymentSpec:
                     issues.append(SpecIssue(
                         "bad_slo_class", f"duplicate SLO class {c.name!r}"))
                 seen.add(c.name)
+        if self.arrival is not None:
+            if not isinstance(self.arrival, ArrivalSpec):
+                issues.append(SpecIssue(
+                    "bad_arrival",
+                    f"arrival must be an ArrivalSpec, "
+                    f"got {type(self.arrival).__name__}",
+                ))
+            else:
+                issues.extend(self.arrival.validate())
+            if self.serving == "sync":
+                issues.append(SpecIssue(
+                    "bad_serving",
+                    "open-loop arrivals serve through the pipelined engine "
+                    "(timestamped admission); serving='sync' is closed-loop",
+                ))
+        if self.autoscale is not None:
+            if not isinstance(self.autoscale, AutoscaleSpec):
+                issues.append(SpecIssue(
+                    "bad_autoscale",
+                    f"autoscale must be an AutoscaleSpec (or True), "
+                    f"got {type(self.autoscale).__name__}",
+                ))
+            else:
+                issues.extend(self.autoscale.validate())
+            if self.serving == "sync":
+                issues.append(SpecIssue(
+                    "bad_autoscale",
+                    "autoscaling serves through the replicated pipelined "
+                    "engine; serving='sync' supports only a fixed pipeline",
+                ))
+            if self.replicas != 1:
+                issues.append(SpecIssue(
+                    "bad_autoscale",
+                    f"replicas={self.replicas!r} and autoscale= both given; "
+                    f"the autoscaler owns the replica count (set "
+                    f"min_replicas/max_replicas on the AutoscaleSpec)",
+                ))
+
+        if self.trace is not None:
+            if not isinstance(self.trace, TraceConfig):
+                issues.append(SpecIssue(
+                    "bad_trace",
+                    f"trace must be a TraceConfig (or True), "
+                    f"got {type(self.trace).__name__}",
+                ))
+            else:
+                issues.extend(SpecIssue("bad_trace", msg)
+                              for msg in self.trace.issues())
+
+        if not (
+            self.replicas == "auto"
+            or (isinstance(self.replicas, int)
+                and not isinstance(self.replicas, bool)
+                and self.replicas >= 1)
+        ):
+            issues.append(SpecIssue(
+                "bad_replicas",
+                f"replicas must be an int >= 1 or 'auto', got {self.replicas!r}",
+            ))
+        elif self.replicas != 1 and self.serving == "sync":
+            issues.append(SpecIssue(
+                "bad_replicas",
+                "replica sets serve through the pipelined engine; "
+                "serving='sync' supports only replicas=1",
+            ))
 
         # capacity feasibility: report WHY, naming the offending layer
         if graph is not None and cluster_ok:
@@ -453,6 +634,31 @@ class DeploymentSpec:
                     f"hosting nodes hold {hostable:.0f} B total -- add nodes or "
                     f"raise per-node capacity",
                 ))
+            if isinstance(self.replicas, int) and self.replicas > 1:
+                hosting = sum(
+                    1 for i, c in enumerate(comm.node_capacity)
+                    if c > 0 and i != 0
+                )
+                if self.replicas > hosting:
+                    issues.append(SpecIssue(
+                        "infeasible_replicas",
+                        f"replicas={self.replicas} exceeds the {hosting} "
+                        f"hosting node(s) (node 0 is the shared dispatcher) "
+                        f"-- the cluster cannot be split that wide",
+                    ))
+            if (isinstance(self.autoscale, AutoscaleSpec)
+                    and isinstance(self.autoscale.min_replicas, int)):
+                hosting = sum(
+                    1 for i, c in enumerate(comm.node_capacity)
+                    if c > 0 and i != 0
+                )
+                if self.autoscale.min_replicas > hosting:
+                    issues.append(SpecIssue(
+                        "infeasible_replicas",
+                        f"autoscale.min_replicas={self.autoscale.min_replicas} "
+                        f"exceeds the {hosting} hosting node(s) -- the cluster "
+                        f"cannot host that many replica groups",
+                    ))
 
         return tuple(issues)
 

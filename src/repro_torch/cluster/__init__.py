@@ -1,11 +1,12 @@
+from repro_torch.cluster.autoscale import Autoscaler, ScaleEvent
 from repro_torch.cluster.controlplane import (
     ControlPlane,
     DesiredState,
     ObservedState,
     ReconcileAction,
+    ReplicaSet,
 )
 from repro_torch.cluster.dispatcher import Dispatcher
-from repro_torch.cluster.engine import Microbatch, PipelinedServingLoop, StageState
 from repro_torch.cluster.events import (
     ClusterEvent,
     LinkDegraded,
@@ -13,12 +14,25 @@ from repro_torch.cluster.events import (
     NodeJoined,
     VersionBumped,
 )
+from repro_torch.cluster.engine import (
+    Microbatch,
+    PipelinedServingLoop,
+    ReplicatedServingLoop,
+    StageState,
+)
 from repro_torch.cluster.lifecycle import EdgeCluster, InferencePipeline, Node, Pod
-from repro_torch.cluster.serving import Request, latency_report, latency_stats
+from repro_torch.cluster.serving import (
+    Request,
+    ServingLoop,
+    latency_report,
+    latency_stats,
+)
 from repro_torch.cluster.store import ArtifactStore
+from repro_torch.cluster.watch import ModelWatcher
 
 __all__ = [
     "ArtifactStore",
+    "Autoscaler",
     "ClusterEvent",
     "ControlPlane",
     "DesiredState",
@@ -27,6 +41,7 @@ __all__ = [
     "InferencePipeline",
     "LinkDegraded",
     "Microbatch",
+    "ModelWatcher",
     "Node",
     "NodeFailed",
     "NodeJoined",
@@ -34,7 +49,11 @@ __all__ = [
     "PipelinedServingLoop",
     "Pod",
     "ReconcileAction",
+    "ReplicaSet",
+    "ReplicatedServingLoop",
     "Request",
+    "ScaleEvent",
+    "ServingLoop",
     "StageState",
     "VersionBumped",
     "latency_report",

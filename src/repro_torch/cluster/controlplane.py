@@ -37,7 +37,7 @@ import dataclasses
 from collections import deque
 from typing import Callable, Sequence
 
-from repro_torch.api.planner import Plan, Planner
+from repro_torch.api.planner import Plan, Planner, ReplicatedPlan
 from repro_torch.cluster.dispatcher import UNSET, Dispatcher
 from repro_torch.cluster.events import (
     ClusterEvent,
@@ -190,30 +190,64 @@ class ControlPlane:
         current across configure AND the re-placement recovery path."""
         return self.dispatcher.last_plan
 
+    # -- strategy swap -------------------------------------------------------
     @property
     def planner(self) -> Planner:
         return self.dispatcher.planner
 
-    def owned_nodes(self) -> set[int] | None:
-        """Nodes within this control plane's view (``None`` = unmasked,
-        the whole cluster).  Tenant-scoped event routing delivers a node's
-        churn only to the planes that own it."""
-        allowed = self.dispatcher.allowed_nodes
-        return None if allowed is None else set(allowed)
+    def replan(self, planner: Planner | None = None) -> Plan:
+        """Re-plan the desired state (optionally under a new ``Planner``) and
+        redeploy in place -- probed bandwidths, leader, and generation are
+        reused, exactly like a version bump without the version.
 
-    def adopt_node(self, node_id: int) -> None:
-        """Extend a masked view by one node (tenant growth); a no-op for
-        unmasked planes, which already see everything."""
-        disp = self.dispatcher
-        if disp.allowed_nodes is not None:
-            disp.allowed_nodes.add(node_id)
-        if disp.hosting_nodes is not None:
-            disp.hosting_nodes.add(node_id)
+        This is how a live deployment swaps strategies
+        (``Deployment.replan(partitioner=..., placer=...)`` builds the
+        planner and calls here).  Raises if the new plan is infeasible,
+        leaving the running pipeline untouched.
+        """
+        if self.desired is None or self.pipeline is None:
+            raise RuntimeError("bootstrap() before replan()")
+        old_planner = self.dispatcher.planner
+        if planner is not None:
+            self.dispatcher.planner = planner
+        try:
+            plan = self._configure(self.desired.graph, self.desired.version)
+        except RuntimeError:
+            self.dispatcher.planner = old_planner  # keep a working strategy
+            raise
+        for pod in self.pipeline.pods:  # stop the old inference pods
+            pod.alive = False
+        self.pipeline = self.dispatcher.deploy(
+            plan, self.executor_for_version(self.desired.version),
+            compression_ratio=self.desired.compression_ratio,
+        )
+        self.history.append(ReconcileAction(
+            None, "redeploy",
+            f"replan with {dict(plan.strategies)}",
+        ))
+        self._journal_action(self.history[-1])
+        return plan
 
     # -- event intake --------------------------------------------------------
     def submit(self, event: ClusterEvent) -> None:
         """Enqueue an observation; convergence happens at ``reconcile()``."""
         self._events.append(event)
+
+    def owned_nodes(self) -> set[int] | None:
+        """Nodes within this control plane's view (``None`` = unmasked,
+        the whole cluster).  Tenant- and replica-scoped event routing
+        delivers a node's churn only to the planes that own it."""
+        allowed = self.dispatcher.allowed_nodes
+        return None if allowed is None else set(allowed)
+
+    def adopt_node(self, node_id: int) -> None:
+        """Extend a masked view by one node (tenancy/replica-set growth);
+        a no-op for unmasked planes, which already see everything."""
+        disp = self.dispatcher
+        if disp.allowed_nodes is not None:
+            disp.allowed_nodes.add(node_id)
+        if disp.hosting_nodes is not None:
+            disp.hosting_nodes.add(node_id)
 
     @property
     def pending(self) -> int:
@@ -454,3 +488,271 @@ class ControlPlane:
             healthy=bool(pipe and pipe.healthy()),
             bottleneck_latency=self._current_bottleneck() if pipe else float("inf"),
         )
+
+
+class ReplicaSet:
+    """R ``ControlPlane``s over one shared ``EdgeCluster``, one per disjoint
+    node group -- the control side of pipeline replica sets.
+
+    Each replica reconciles independently within its own sub-cluster (its
+    dispatcher is masked to the group + the shared dispatcher node), so a
+    ``NodeFailed`` re-places -- or, when the group can no longer host the
+    model, *retires* -- only the touched replica while the others keep
+    serving.  Event routing:
+
+      ===============  ======================================================
+      event            routed to
+      ===============  ======================================================
+      NodeFailed       every live replica whose view contains the node (its
+                       owner; all replicas when the shared dispatcher dies)
+      NodeJoined       heal: the group that owns the node (or, if its
+                       replica retired, adopted by the weakest live one);
+                       grow: the node is added to the cluster at intake and
+                       adopted by the weakest live replica (full restart of
+                       that replica only -- the paper's rule, scoped)
+      LinkDegraded     the one live replica hosting an endpoint (replica
+                       paths never ride cross-group links, so one tolerance
+                       check suffices); no owner -> applied to the cluster
+      VersionBumped    ROLLED one replica at a time: the next replica only
+                       receives the event after the previous one converged,
+                       so aggregate throughput never drops to zero
+      ===============  ======================================================
+    """
+
+    def __init__(
+        self,
+        cluster: EdgeCluster,
+        controls: Sequence[ControlPlane],
+        groups: Sequence[Sequence[int]],
+        *,
+        dispatcher_node: int = 0,
+        journal=None,
+    ):
+        if len(controls) != len(groups):
+            raise ValueError("one node group per control plane")
+        self.cluster = cluster
+        self.controls = list(controls)
+        self.groups = [set(g) for g in groups]
+        self.dispatcher_node = dispatcher_node
+        self.journal = journal  # rollout/retire transitions land here
+        self.retired = [False] * len(self.controls)
+        self._rollout_queue: deque[VersionBumped] = deque()
+        self._rollout_targets: deque[int] | None = None
+        self._rollout_current: int | None = None
+        self._rollout_event: VersionBumped | None = None
+
+    # -- introspection -------------------------------------------------------
+    @property
+    def n_replicas(self) -> int:
+        return len(self.controls)
+
+    def live_indices(self) -> list[int]:
+        return [r for r in range(len(self.controls)) if not self.retired[r]]
+
+    @property
+    def pending(self) -> int:
+        """Queued events across live replicas + rollout still in flight."""
+        n = sum(self.controls[r].pending for r in self.live_indices())
+        if self._rollout_event is not None or self._rollout_queue:
+            n += 1
+        return n
+
+    def observed(self) -> tuple[ObservedState, ...]:
+        return tuple(c.observed() for c in self.controls)
+
+    def owned_nodes(self) -> set[int] | None:
+        """Union of the live replicas' views (+ the shared dispatcher);
+        ``None`` when any live replica is unmasked."""
+        out = {self.dispatcher_node}
+        for r in self.live_indices():
+            allowed = self.controls[r].dispatcher.allowed_nodes
+            if allowed is None:
+                return None
+            out |= set(allowed)
+        return out
+
+    def recovery_log(self) -> list[dict | None]:
+        """Per-replica ``Dispatcher.last_recovery`` records (``None`` =
+        that replica never ran a recovery re-solve).  Chaos tests assert
+        scoped recoveries stayed inside the failed replica's neighborhood."""
+        return [c.dispatcher.last_recovery for c in self.controls]
+
+    def deployed_plan(self) -> ReplicatedPlan:
+        """The as-deployed aggregate: live replicas' current plans."""
+        live = self.live_indices()
+        return ReplicatedPlan(
+            version=max(
+                (self.controls[r].desired.version for r in live
+                 if self.controls[r].desired), default=-1,
+            ),
+            replicas=tuple(self.controls[r].last_plan for r in live),
+            groups=tuple(tuple(sorted(self.groups[r])) for r in live),
+            requested=len(self.controls),
+        )
+
+    def rolling_version(self) -> int:
+        """Highest version in the rollout machinery; -1 when idle."""
+        versions = [e.version for e in self._rollout_queue]
+        if self._rollout_event is not None:
+            versions.append(self._rollout_event.version)
+        return max(versions, default=-1)
+
+    # -- event intake --------------------------------------------------------
+    def submit(self, event: ClusterEvent) -> None:
+        """Route one cluster disturbance to the replica(s) it touches."""
+        if isinstance(event, VersionBumped):
+            self._rollout_queue.append(event)
+            self.advance_rollout()
+            return
+        if isinstance(event, NodeFailed):
+            owners = [
+                r for r in self.live_indices()
+                if (allowed := self.controls[r].dispatcher.allowed_nodes) is None
+                or event.node_id in allowed
+            ]
+            if not owners:
+                # a retired replica's node (or an unknown one): keep the
+                # shared cluster state honest, no pipeline is affected
+                self.cluster.fail(event.node_id)
+                return
+            for r in owners:
+                self.controls[r].submit(event)
+            return
+        if isinstance(event, NodeJoined):
+            self._route_node_joined(event)
+            return
+        if isinstance(event, LinkDegraded):
+            owners = [
+                r for r in self.live_indices()
+                if event.a in self.groups[r] or event.b in self.groups[r]
+            ]
+            if not owners:
+                self.cluster.degrade_link(event.a, event.b, event.factor)
+                return
+            # replica paths stay inside their group (+ the shared
+            # dispatcher), so at most one live pipeline can ride this link;
+            # route to its owner, which applies the cluster mutation once
+            self.controls[owners[0]].submit(event)
+            return
+        # unknown event class: let every live replica log a noop
+        for r in self.live_indices():
+            self.controls[r].submit(event)
+
+    def _route_node_joined(self, event: NodeJoined) -> None:
+        live = self.live_indices()
+        if event.comm is not None:
+            # grow: adopt the node at intake (serializes concurrent grows)
+            # and hand the weakest live replica a heal-style event
+            new_id = self.cluster.add_node(event.comm)
+            if not live:
+                return
+            target = self._weakest(live)
+            self._adopt(target, new_id)
+            self.controls[target].submit(NodeJoined(node_id=new_id))
+            return
+        owners = [r for r in live if event.node_id in self.groups[r]]
+        if owners:
+            self.controls[owners[0]].submit(event)
+            return
+        self.cluster.heal(event.node_id)
+        if not live:
+            return
+        # a retired replica's node coming back: the weakest live replica
+        # absorbs it (and pays that group's full restart)
+        target = self._weakest(live)
+        self._adopt(target, event.node_id)
+        self.controls[target].submit(NodeJoined(node_id=event.node_id))
+
+    def _weakest(self, live: list[int]) -> int:
+        def throughput(r: int) -> float:
+            plan = self.controls[r].last_plan
+            return plan.predicted_throughput if plan is not None else 0.0
+
+        return min(live, key=lambda r: (throughput(r), r))
+
+    def _adopt(self, r: int, node_id: int) -> None:
+        self.groups[r].add(node_id)
+        self.controls[r].adopt_node(node_id)
+
+    # -- rolling version bumps ----------------------------------------------
+    def advance_rollout(self) -> None:
+        """Move the one-replica-at-a-time version rollout forward.
+
+        Called by the router between serving steps (and by ``reconcile``):
+        the next replica receives the ``VersionBumped`` event only once the
+        current one has drained its event queue -- by then it either
+        redeployed at the new version or rejected it, and in both cases it
+        is serving again, so at most one replica is ever mid-redeploy.
+        """
+        if self._rollout_event is None:
+            if not self._rollout_queue:
+                return
+            self._rollout_event = self._rollout_queue.popleft()
+            self._rollout_targets = deque(self.live_indices())
+            self._rollout_current = None
+        cur = self._rollout_current
+        if cur is not None and not self.retired[cur] and self.controls[cur].pending:
+            return  # still digesting; the others keep serving
+        while self._rollout_targets:
+            nxt = self._rollout_targets.popleft()
+            if self.retired[nxt]:
+                continue
+            self.controls[nxt].submit(self._rollout_event)
+            if self.journal is not None:
+                self.journal.append("rollout", "replicaset", {
+                    "version": self._rollout_event.version,
+                    "replica": nxt, "phase": "submit",
+                })
+            self._rollout_current = nxt
+            return
+        if self.journal is not None and self._rollout_event is not None:
+            self.journal.append("rollout", "replicaset", {
+                "version": self._rollout_event.version,
+                "replica": None, "phase": "complete",
+            })
+        self._rollout_event = None
+        self._rollout_current = None
+        self._rollout_targets = None
+        if self._rollout_queue:
+            self.advance_rollout()
+
+    # -- convergence ---------------------------------------------------------
+    def reconcile(self) -> list[ReconcileAction]:
+        """Reconcile every live replica; a replica whose group can no longer
+        host the model is retired instead of taking the set down."""
+        actions: list[ReconcileAction] = []
+        for r in self.live_indices():
+            try:
+                actions.extend(self.controls[r].reconcile())
+            except RuntimeError as e:
+                self.mark_retired(r, str(e))
+                actions.append(self.controls[r].history[-1])
+        self.advance_rollout()
+        return actions
+
+    def add_replica(self, control: ControlPlane, group: Sequence[int]) -> int:
+        """Append a freshly-bootstrapped replica over ``group`` (the
+        autoscaler's grow path).  Replica indices are append-only -- retired
+        slots keep their history -- so routers indexing by replica id stay
+        consistent across grow/retire cycles."""
+        self.controls.append(control)
+        self.groups.append(set(group))
+        self.retired.append(False)
+        return len(self.controls) - 1
+
+    def mark_retired(self, r: int, reason: str = "") -> None:
+        if self.retired[r]:
+            return
+        self.retired[r] = True
+        control = self.controls[r]
+        if control.pipeline is not None:
+            for pod in control.pipeline.pods:
+                pod.alive = False
+        control.history.append(ReconcileAction(
+            None, "retire",
+            reason or f"replica {r}'s group can no longer host the model",
+        ))
+        if self.journal is not None:
+            self.journal.append("retire", "replicaset", {
+                "replica": r, "reason": control.history[-1].detail,
+            })

@@ -1,10 +1,13 @@
 """The control-plane journal: one append-only, monotonic event log.
 
-Every control-plane decision lands here as a :class:`JournalRecord` --
-reconcile actions (``ControlPlane.history``), scoped-recovery records
-(``Dispatcher.last_recovery``) and tenancy routing
-(``MultiTenantControlPlane.routed``) -- so a single ordered read
-reconstructs the control-plane story of a run.
+Before this existed, "what did the control plane do?" was smeared across
+four incompatible private logs: ``ControlPlane.history`` (reconcile
+actions), ``Dispatcher.last_recovery`` (a single overwritten dict),
+``Autoscaler.events`` (``ScaleEvent``s), and
+``MultiTenantControlPlane.routed`` (tenancy routing pairs).  Those
+structures still exist for their owners' internal use, but every decision
+now *also* lands here as a :class:`JournalRecord`, so a single ordered
+read reconstructs the full control-plane story of a run.
 
 Timestamps come from registered virtual-clock providers (the serving
 loops / router), clamped monotone non-decreasing: a record is stamped
@@ -27,9 +30,10 @@ class JournalRecord:
     """One control-plane decision.
 
     ``kind`` is the decision class (``reconcile``, ``recovery``,
-    ``route``, ...); ``source`` names the emitting component (``control``,
-    ``alpha/control``, ``tenancy``...); ``detail`` is a flat JSON-scalar
-    dict specific to the kind.
+    ``rollout``, ``retire``, ``scale``, ``route``, ...); ``source`` names
+    the emitting component (``control``, ``replica:2``,
+    ``tenant:alpha/control``, ``autoscaler``...); ``detail`` is a flat
+    JSON-scalar dict specific to the kind.
     """
 
     seq: int
@@ -70,8 +74,8 @@ class Journal:
         """Record a decision; returns the appended record.
 
         ``t_s`` overrides the clock when the caller knows the decision
-        time precisely; it is still clamped monotone so the log stays
-        ordered.
+        time precisely (e.g. autoscaler events carry their own stamp); it
+        is still clamped monotone so the log stays ordered.
         """
         t = self.now() if t_s is None else max(float(t_s), self._last_t)
         self._last_t = t

@@ -13,10 +13,6 @@ cluster-level tenancy layer:
     another's live pipelines,
   * ``deploy_tenants`` -- the one-call entry (also reached by handing
     ``repro_torch.api.deploy()`` a *list* of specs).
-
-Not ported yet, and refused with a ``not_ported`` issue or error: replicated
-or autoscaled tenants, open-loop traces (``submit_trace``) and span tracing
-(``trace_timeline``, ``chrome_trace``, ``attribution``).
 """
 
 from repro_torch.tenancy.controlplane import MultiTenantControlPlane

@@ -1,7 +1,8 @@
 """``MultiTenantControlPlane``: tenant-scoped event routing (churn isolation).
 
-Ownership routing at the tenant level: every tenant's control entry (its
-``ControlPlane``) is masked to the tenant's node slice,
+The tenant-level generalization of ``ReplicaSet.submit``'s ownership
+routing: every tenant's control entry (a ``ControlPlane`` or, for a
+replicated tenant, a ``ReplicaSet``) is masked to the tenant's node slice,
 and a cluster disturbance is delivered only to the tenant(s) whose view
 contains it.  One tenant's ``NodeFailed`` re-plan therefore never perturbs
 another tenant's live pipelines -- the isolation the chaos suite and the
@@ -25,7 +26,8 @@ Routing rules (``submit``):
                    under the shared policy the first owner checks, an
                    approximation);  no owner -> cluster-only mutation
   VersionBumped    tenant-scoped by nature (each tenant rolls its own
-                   model): requires an explicit ``tenant=``
+                   model): requires an explicit ``tenant=`` -- replicated
+                   tenants then roll one replica at a time as before
   ===============  ======================================================
 
 ``reconcile()`` converges tenants independently and reports per tenant,
@@ -35,7 +37,7 @@ that tenant alone.
 
 from __future__ import annotations
 
-from repro_torch.cluster.controlplane import ControlPlane, ReconcileAction
+from repro_torch.cluster.controlplane import ControlPlane, ReconcileAction, ReplicaSet
 from repro_torch.cluster.events import (
     ClusterEvent,
     LinkDegraded,
@@ -45,8 +47,10 @@ from repro_torch.cluster.events import (
 )
 
 
-def _entry_throughput(entry: ControlPlane) -> float:
+def _entry_throughput(entry) -> float:
     """Live predicted throughput of a tenant's control entry."""
+    if isinstance(entry, ReplicaSet):
+        return float(entry.deployed_plan().predicted_throughput)
     plan = entry.last_plan
     return float(plan.predicted_throughput) if plan is not None else 0.0
 
@@ -57,7 +61,7 @@ class MultiTenantControlPlane:
     def __init__(
         self,
         cluster,
-        entries: dict[str, ControlPlane],
+        entries: "dict[str, ControlPlane | ReplicaSet]",
         *,
         weights: dict[str, float] | None = None,
         dispatcher_node: int = 0,
@@ -93,10 +97,16 @@ class MultiTenantControlPlane:
         return {name: e.observed() for name, e in self.entries.items()}
 
     def recovery_log(self) -> dict:
-        """Per-tenant ``Dispatcher.last_recovery`` records; ``None`` entries
-        mean no recovery re-solve has run there yet."""
-        return {name: e.dispatcher.last_recovery
-                for name, e in self.entries.items()}
+        """Per-tenant recovery records: a tenant's ``Dispatcher.last_recovery``
+        (single plane) or its per-replica list (``ReplicaSet``).  ``None``
+        entries mean no recovery re-solve has run there yet."""
+        out = {}
+        for name, e in self.entries.items():
+            if hasattr(e, "recovery_log"):
+                out[name] = e.recovery_log()
+            else:
+                out[name] = e.dispatcher.last_recovery
+        return out
 
     def owners_of_node(self, node_id: int) -> list[str]:
         return [
@@ -183,9 +193,11 @@ class MultiTenantControlPlane:
 
     def _adopt(self, name: str, node_id: int) -> None:
         entry = self.entries[name]
-        # extend the masked view first, or the heal-style event would be
-        # invisible to the tenant's dispatcher
-        entry.adopt_node(node_id)
+        if isinstance(entry, ControlPlane):
+            # extend the masked view first, or the heal-style event would
+            # be invisible to the tenant's dispatcher
+            entry.adopt_node(node_id)
+        # ReplicaSet entries adopt internally (weakest live replica)
         entry.submit(NodeJoined(node_id=node_id))
         self._route(name, "NodeJoined")
 

@@ -8,8 +8,8 @@ flow generalizes the single-tenant bootstrap:
   3. ``TenantScheduler.carve`` the hosting nodes into per-tenant slices
      (or fractional co-residency under the ``"shared"`` policy),
   4. bootstrap each tenant through the ordinary ``_build_deployment`` path
-     restricted to its slice (a masked control plane, per-tenant artifact
-     store + probe-noise stream),
+     restricted to its slice (masked control planes, subcluster planning,
+     per-tenant artifact store + probe-noise stream),
   5. wire the cluster-level pair that makes it multi-tenant: a
      ``MultiTenantControlPlane`` (tenant-scoped churn) and a
      ``TenancyRouter`` (quota admission + weighted-fair serving).
@@ -42,7 +42,8 @@ from repro_torch.tenancy.controlplane import MultiTenantControlPlane
 from repro_torch.tenancy.router import TenancyRouter
 from repro_torch.tenancy.scheduler import TenancyPlan, TenantScheduler
 
-# per-tenant probe-noise stream separation (prime-strided)
+# per-tenant probe-noise stream separation (prime-strided, like the
+# 7919 * replica stride inside one deployment)
 _TENANT_SEED_STRIDE = 104_729
 
 
@@ -68,7 +69,7 @@ def deploy_tenants(
     if issues:
         raise InfeasibleSpecError(tuple(issues))
 
-    comm, _ = tenants[0].spec.cluster.build()
+    comm, positions = tenants[0].spec.cluster.build()
     cluster = EdgeCluster(comm, flops_per_s=flops_per_s)
     scheduler = TenantScheduler(policy=policy)
     try:
@@ -90,8 +91,9 @@ def deploy_tenants(
         store = ArtifactStore(os.path.join(root, tenant.name))
         try:
             dep = _build_deployment(
-                spec, graph, executor_for_version, cluster, store,
-                version=version, nodes=placement.nodes,
+                spec, graph, executor_for_version, cluster, store, positions,
+                version=version, flops_per_s=flops_per_s,
+                nodes=placement.nodes,
                 seed_offset=_TENANT_SEED_STRIDE * idx,
                 journal=journal, source_prefix=f"{tenant.name}/",
             )
@@ -103,9 +105,14 @@ def deploy_tenants(
                 f"tenant {tenant.name!r} cannot deploy on its "
                 f"{len(placement.nodes)}-node slice: {detail}",
             ),))
+        if dep.autoscaler is not None:
+            dep.autoscaler.name = tenant.name
         deployments[tenant.name] = dep
 
-    entries = {name: dep.control for name, dep in deployments.items()}
+    entries = {
+        name: (dep.replicaset or dep.control)
+        for name, dep in deployments.items()
+    }
     weights = {t.name: t.weight for t in tenants}
     mtcp = MultiTenantControlPlane(
         cluster, entries, weights=weights, journal=journal)
@@ -116,7 +123,7 @@ def deploy_tenants(
     )
     return MultiTenantDeployment(
         tuple(tenants), plan, deployments, mtcp, router,
-        cluster=cluster, journal=journal,
+        cluster=cluster, positions=positions, journal=journal,
     )
 
 
@@ -147,8 +154,8 @@ def _effective_spec(tenant: TenantSpec, plan: TenancyPlan, comm):
 class MultiTenantDeployment:
     """Live multi-tenant serving: per-tenant deployments + shared control.
 
-    The per-tenant ``Deployment`` facades stay fully usable (model-watch
-    polling, per-tenant metrics); this object adds the
+    The per-tenant ``Deployment`` facades stay fully usable (strategy
+    swaps, model-watch polling, per-tenant metrics); this object adds the
     cluster-level views -- tenant-keyed serving through the weighted-fair
     router, and churn injection that routes each disturbance only to the
     tenant(s) whose slice it touches.
@@ -163,6 +170,7 @@ class MultiTenantDeployment:
         router: TenancyRouter,
         *,
         cluster: EdgeCluster,
+        positions=None,
         journal: Journal | None = None,
     ):
         self.tenants = tenants
@@ -171,6 +179,7 @@ class MultiTenantDeployment:
         self.controlplane = mtcp
         self.router = router
         self.cluster = cluster
+        self.positions = positions
         self.journal = journal if journal is not None else Journal()
 
     # -- introspection -------------------------------------------------------
@@ -196,6 +205,37 @@ class MultiTenantDeployment:
     def schedule(self, tenant: str, x: Any, at_s: float, *,
                  slo_class: str | None = None) -> Request:
         return self.router.schedule(tenant, x, at_s, slo_class=slo_class)
+
+    def submit_trace(self, tenant: str | None = None, trace=None,
+                     make_input=None) -> int:
+        """Schedule open-loop arrivals.  With ``tenant=None`` every tenant
+        whose spec declares an arrival process schedules its own trace (per
+        tenant seeds, merged by the router on the shared timeline)."""
+        if tenant is None:
+            if trace is not None:
+                raise ValueError("an explicit trace needs a tenant=")
+            return sum(
+                self.submit_trace(t.name)
+                for t in self.tenants if t.spec.arrival is not None
+            )
+        dep = self.deployments[tenant]
+        if trace is None:
+            arr = dep.spec.arrival
+            if arr is None:
+                raise RuntimeError(
+                    f"tenant {tenant!r} has no arrival process; pass a trace")
+            from repro_torch.workload import make_trace
+
+            trace = make_trace(
+                arr.trace, rate=arr.rate, duration_s=arr.duration_s,
+                seed=arr.seed, classes=dep.spec.slo_classes,
+            )
+        if make_input is None:
+            make_input = lambda i, a: i  # noqa: E731
+        for i, a in enumerate(trace.arrivals):
+            self.schedule(tenant, make_input(i, a), a.t_s,
+                          slo_class=a.slo_class)
+        return len(trace.arrivals)
 
     def step(self) -> list[Request]:
         return self.router.step()
@@ -243,20 +283,40 @@ class MultiTenantDeployment:
             "journal": self.journal.summary(),
         })
 
-    # -- not ported yet ---------------------------------------------------------
-    def submit_trace(self, *args, **kwargs):
-        raise _not_ported("open-loop traces (submit_trace)")
+    # -- observability --------------------------------------------------------
+    def trace_timeline(self) -> list[dict]:
+        """Every tenant's span timeline merged (spans carry ``tenant``)."""
+        out = [s for dep in self.deployments.values()
+               for s in dep.trace_timeline()]
+        out.sort(key=lambda s: (s["tenant"] or "", s["req_id"], s["t0_s"]))
+        return out
 
-    def trace_timeline(self):
-        raise _not_ported("span tracing (trace_timeline)")
+    def chrome_trace(self) -> dict | None:
+        """One Chrome trace across tenants: per-tenant pid blocks (each
+        tenant's replica pids offset past the previous tenant's), process
+        names prefixed with the tenant.  None when no tenant traces."""
+        events: list[dict] = []
+        offset = 0
+        any_traced = False
+        for name, dep in self.deployments.items():
+            ct = dep.chrome_trace()
+            if ct is None:
+                continue
+            any_traced = True
+            max_pid = 0
+            for ev in ct["traceEvents"]:
+                ev = dict(ev)
+                max_pid = max(max_pid, int(ev["pid"]))
+                ev["pid"] = int(ev["pid"]) + offset
+                if ev.get("ph") == "M":
+                    ev["args"] = {"name": f"{name}: {ev['args']['name']}"}
+                events.append(ev)
+            offset += max_pid + 1
+        if not any_traced:
+            return None
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
 
-    def chrome_trace(self):
-        raise _not_ported("span tracing (chrome_trace)")
-
-    def attribution(self):
-        raise _not_ported("critical-path attribution")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"not_ported: {what} needs modules not ported to the torch package yet")
+    def attribution(self) -> dict:
+        """Per-tenant critical-path attributions (None entries: no tracer)."""
+        return {name: dep.attribution()
+                for name, dep in self.deployments.items()}

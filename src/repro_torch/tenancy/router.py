@@ -1,9 +1,11 @@
 """``TenancyRouter``: multiplex per-tenant serving loops on one timeline.
 
-Each tenant serves through its own engine (``PipelinedServingLoop``) over
-its own node slice; the router co-simulates them on one shared virtual
-timeline by one discrete-event rule -- always advance the *lagging* tenant
--- so the merged completion stream is in time order across tenants.
+Each tenant serves through its own engine (``PipelinedServingLoop``, or
+``ReplicatedServingLoop`` for a replicated/autoscaled tenant) over its own
+node slice; the router co-simulates them on one shared virtual timeline
+with the same discrete-event rule the replica router uses -- always
+advance the *lagging* tenant -- so the merged completion stream is in
+time order across tenants.
 
 Admission is quota-scoped: each tenant's ``admission_depth`` (its
 ``TenantSpec`` quota) is enforced inside that tenant's own loop, so one
@@ -137,6 +139,12 @@ class TenancyRouter:
         )
 
     # -- reporting -----------------------------------------------------------
+    def steady_state_throughput(self, skip_frac: float = 0.5) -> dict:
+        return {
+            name: loop.steady_state_throughput(skip_frac)
+            for name, loop in self.loops.items()
+        }
+
     def latency_report(
         self, class_targets: dict[str, dict] | None = None,
     ) -> dict:

@@ -6,9 +6,10 @@ serving opens: *which hosting nodes does each tenant get?*  Two policies:
   * ``"partition"`` (default) -- carve the hosting nodes into disjoint,
     bandwidth-coherent slices, one per tenant, sized by the tenants'
     ``capacity_fraction`` quotas (largest-remainder apportionment; every
-    tenant gets at least one node).  The carve is
-    ``api.planner.split_cluster`` with per-group ``targets``, so each
-    slice grows around a well-connected neighbourhood.  Disjoint slices are
+    tenant gets at least one node).  The carve reuses the replica-set
+    split machinery (``api.planner.split_cluster`` with per-group
+    ``targets``), so each slice grows around a well-connected
+    neighbourhood exactly like a replica group does.  Disjoint slices are
     what make churn isolation *structural*: a tenant's control planes are
     masked to its slice, so another tenant's node failures are events it
     never owns.

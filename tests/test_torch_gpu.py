@@ -408,3 +408,44 @@ def test_ssd_wrapper_refuses(cuda):
     for bad in (0, -1):
         with pytest.raises(ValueError, match="segments"):
             ssd_chunked_cuda(*args, chunk=96, segments=bad)
+
+
+def test_replicated_demo_mlp_card_matches_cpu(cuda):
+    """demo_mlp with ``replicas=2`` and int8 hops on the card (quantize and
+    dequantize kernels) against the same deploy on the CPU (the plain
+    versions): the same plans and routing, every request completed once as
+    a CUDA tensor, outputs within INT8_MAX_REL_ERROR of max|cpu|.  Requests
+    are constant activations, the family ``chip_smoke.py``'s card-vs-CPU
+    phase and ``benchmarks/kernel_path.py`` use: with random ones a code
+    flips at a .5 tie between the card's and the CPU's f32 sums, and the
+    layers after it carry the flip past the bound (ROADMAP, queue 3)."""
+    from repro_torch.api import ClusterSpec, DeploymentSpec, deploy
+    from repro_torch.core.model_zoo import demo_mlp
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    def params(version):
+        rng = np.random.default_rng(100 + version)
+        return {"ws": rng.standard_normal((8, 512, 512), dtype=np.float32) * 0.05}
+
+    served = {}
+    for device in ("cuda", "cpu"):
+        graph, ex = demo_mlp(d=512, device=device, params_for_version=params)
+        d = deploy(DeploymentSpec(
+            model=graph, executor_for_version=ex, codec="int8", seed=3, replicas=2,
+            cluster=ClusterSpec(n_nodes=12, capacity_bytes=graph.total_param_bytes / 2.5,
+                                seed=5), device=device))
+        reset_launch_counts()
+        for i in range(8):
+            d.submit(torch.full((512,), 0.1 * (i + 1), device=device))
+        done = d.drain()
+        served[device] = (d.plan.summary(), [(r.req_id, r.replica) for r in done],
+                          [r.result for r in done])
+        if device == "cuda":
+            counts = launch_counts()
+            assert counts["quantize_int8_cuda"] and counts["dequantize_int8_cuda"]
+            assert all(r.is_cuda for r in served[device][2])
+    (plan, order, outs), (cplan, corder, couts) = served["cuda"], served["cpu"]
+    assert plan == cplan and order == corder and {r for _, r in order} == {0, 1}
+    for got, ref in zip(outs, couts):
+        top = ref.abs().max().item()
+        assert (got.cpu() - ref).abs().max().item() <= INT8_MAX_REL_ERROR * top

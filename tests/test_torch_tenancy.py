@@ -330,16 +330,38 @@ def test_infeasible_carve_and_single_spec_kwargs():
 
 
 def test_unported_tenancy_branches_refuse():
-    comm = _comm(PORT)
-    ts = [PORT.TenantSpec("a", _spec(PORT, "a", comm, replicas=2)),
-          PORT.TenantSpec("b", _spec(PORT, "b", comm))]
-    with pytest.raises(PORT.InfeasibleSpecError) as ei:
-        PORT.deploy(ts)
-    assert [i.code for i in ei.value.issues] == ["not_ported"]
-    d = PORT.deploy(_tenants(PORT, TWO))
-    for call in (d.submit_trace, d.trace_timeline, d.chrome_trace, d.attribution):
-        with pytest.raises(NotImplementedError, match="not_ported"):
-            call()
+    """These branches refused with ``not_ported`` until replica sets, traces
+    and spans were ported; now a replicated, traced, open-loop tenant beside
+    an autoscaled one deploys, and ``submit_trace``, ``trace_timeline``,
+    ``chrome_trace`` and ``attribution`` return what the JAX package's do."""
+    runs = []
+    for side in SIDES:
+        api_mod = api if side is PORT else jax_api
+        comm = _comm(side, cap=2.2e6)  # 4 layers a node: 2-stage pipelines
+        arrival = api_mod.ArrivalSpec("bursty", rate=300.0, duration_s=0.2, seed=4)
+        ts = [side.TenantSpec("a", _spec(side, "a", comm, capacity=2.2e6, replicas=2,
+                                         arrival=arrival,
+                                         trace=api_mod.TraceConfig(sample=1.0))),
+              side.TenantSpec("b", _spec(side, "b", comm, capacity=2.2e6, arrival=arrival,
+                                         trace=True,
+                                         autoscale=api_mod.AutoscaleSpec(
+                                             min_replicas=1, max_replicas=2,
+                                             backlog_high=3.0, backlog_low=1.0)))]
+        assert (validate_tenants if side is PORT else jax_validate_tenants)(ts) == ()
+        d = side.deploy(ts)
+        n = d.submit_trace()
+        d.drain()
+        runs.append((d, n))
+    (d, n), (jd, jn) = runs
+    assert n == jn > 0 and len(d.completed("a")) + len(d.completed("b")) == n
+    _same_plans(d, jd)
+    assert d.deployment("a").replicated and d.deployment("b").autoscaler is not None
+    for call in ("trace_timeline", "chrome_trace", "attribution"):
+        got, want = getattr(d, call)(), getattr(jd, call)()
+        assert got and json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True), call
+    assert d.router.steady_state_throughput() == jd.router.steady_state_throughput()
+    assert [e.summary() for e in d.deployment("b").autoscaler.events] == \
+        [e.summary() for e in jd.deployment("b").autoscaler.events]
 
 
 def test_tenant_stores_are_isolated(tmp_path):
