@@ -43,6 +43,25 @@ the first fault:
    the card and on the CPU (the plain versions, which the CPU tests hold to
    the JAX package) with the same weights: outputs within
    INT8_MAX_REL_ERROR of max|ref|.
+8b. lm -- the LM zoo (``repro_torch.models.lm``, ``runtime.serve``).  First
+   small-width gemma2- and zamba2-shaped models (``reduced()`` at d=512 with
+   hd 128: 2 layers; at d=320 with hd 80: 12 Mamba2 layers, 6 shared-block
+   applications; S=2048, so ``attend`` takes the flash
+   op) on the card and on the CPU with the same weights and tokens, in f32
+   (within 1e-4 of max|ref|) and bf16 (3e-2), the CPU tests' tolerances.
+   Then each model whole at its published widths in bf16, weights drawn on
+   the card: gemma2-27b (46 layers, 54.45 GB) prefilling B=2 prompts of
+   S=8192 through ``make_prefill_step``, then 32 greedy steps through
+   ``make_serve_step`` with caches of 8192; zamba2-2.7b (54 Mamba2 layers
+   and the shared block) at B=4 x 8192, the same way.  A prefill must
+   launch flash 46 times (23 windowed) for gemma2, flash 9 and the SSD scan
+   54 times for zamba2, and decode neither; every logit finite.  Prints the
+   prefill's wall time and tokens/s, ms a decode step, peak device memory
+   and the launches; then one launch of each flash variant and one SSD
+   launch on the inputs the prefill gave them, against the plain versions.
+   ``--profile`` adds a prefill and a decode step under ``torch.profiler``:
+   device time by kernel, the idle share, the flash kernel's and the SSD
+   scan's shares.
 9. replicas -- the serving branches beside one pipeline, at full width:
    demo_transformer at phase 4's width served ``serving="sync"`` and
    pipelined from one spec, whose outputs must be ``torch.equal``; demo_ssm
@@ -62,7 +81,8 @@ the first fault:
    cluster).
 10. times -- each kernel (CUDA events, after warm-up, mean over launches)
    beside its bound, its plain version's time and yardsticks the port never
-   calls: for flash attention (global and windowed layers, each a row) the
+   calls: for flash attention (global and windowed layers, each a row, at
+   demo_transformer's shape, at gemma2-27b's B=2 and at zamba2-2.7b's hd 80) the
    one PyTorch call that computes it, FlexAttention under ``torch.compile``
    with the softcap as ``score_mod`` and the masks as a ``block_mask``
    (``library_ms``); for dequant_matmul the dequantize kernel followed by
@@ -359,7 +379,9 @@ def phase_build():
     t0 = time.perf_counter()
     _build.build(force=True)
     _build.lib()
-    say("build", f"{_build.BUILD / _build.LIB_NAME} in {time.perf_counter() - t0:.1f} s")
+    say("build", f"{_build.BUILD / _build.LIB_NAME} in {time.perf_counter() - t0:.1f} s; nvcc "
+                 "per source, in parallel: " + ", ".join(
+                     f"{k} {v:.1f} s" for k, v in sorted(_build.build_seconds.items())))
     name, spills = None, "?"
     for line in _build.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -892,6 +914,276 @@ def phase_reference():
                 (small_ssm["seq"], small_ssm["d"]))
 
 
+# phase 8b: the LM zoo's prefill and decode steps at full width, bf16
+LM_MODELS = (
+    # gemma2-27b whole (46 layers, 54.45 GB of bf16 weights); B=2 is the cut
+    dict(arch="gemma2-27b", batch=2, seq=8192, seed=31),
+    # zamba2-2.7b whole: its Mamba2 tower at the SSD kernel's served shape
+    dict(arch="zamba2-2.7b", batch=4, seq=8192, seed=32),
+)
+LM_DECODE_STEPS = 32
+# launches a prefill: flash (all), flash with a window, the SSD scan
+LM_LAUNCHES = {"gemma2-27b": (46, 23, 0), "zamba2-2.7b": (9, 0, 54)}
+# the CPU tests' tolerances (tests/_lm_parity.py), of max|ref|
+TOL_LM = {"float32": 1e-4, "bfloat16": 3e-2}
+# small widths whose head dims the served models use: 128 (gemma2), 80 (zamba2)
+LM_SMALL = (("gemma2-27b", 512), ("zamba2-2.7b", 320))
+LM_SMALL_SEQ = 2048  # where attend takes the flash op
+
+
+def lm_card_vs_cpu(arch: str, d_model: int) -> None:
+    """A small-width model of ``arch`` (``reduced()`` depth) through
+    ``forward_hidden`` and the prefill step on the card and on the CPU (the
+    plain versions, which the CPU tests hold to the JAX package) with the
+    same weights and tokens, in f32 and in bf16."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.runtime.serve import make_prefill_step
+
+    cfg = reduced(get_config(arch), d_model=d_model, vocab=1024)
+    base = lm.init_params(cfg, torch.Generator().manual_seed(7), device="cpu",
+                          max_pos=LM_SMALL_SEQ)
+    tokens = np.random.default_rng(8).integers(0, cfg.vocab_size, (1, LM_SMALL_SEQ))
+    for dtype in (torch.float32, torch.bfloat16):
+        params = tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, base) \
+            if dtype == torch.float32 else base
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), params)
+            batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+            reset_launch_counts()
+            with torch.inference_mode():
+                hidden, _ = lm.forward_hidden(cfg, p, batch)
+            logits = make_prefill_step(cfg)(p, batch)
+            out[dev] = (hidden.float().cpu(), logits.cpu())
+            counts = launch_counts()
+        tol = TOL_LM[str(dtype)[6:]]
+        errs = [float((c - r).abs().max() / r.abs().max())
+                for c, r in zip(out["cuda"], out["cpu"])]
+        flash, ssd = counts["flash_attention_cuda"], counts["ssd_chunked_cuda"]
+        if flash == 0 or (cfg.family == "hybrid" and ssd == 0):
+            fail(f"small {arch}: the card's run launched flash {flash}, SSD {ssd} times")
+        if not max(errs) <= tol:
+            fail(f"small {arch} {dtype}: card vs CPU hidden {errs[0]:.3g}, logits {errs[1]:.3g} "
+                 f"of max|ref| > {tol}")
+        say("lm", f"small {arch} (d={cfg.d_model}, {cfg.n_layers} layers, hd {cfg.head_dim}, "
+                  f"S={LM_SMALL_SEQ}) {str(dtype)[6:]}: card vs CPU hidden {errs[0]:.3g}, prefill "
+                  f"logits {errs[1]:.3g} of max|ref| (pin {tol}); card launches flash {flash}, "
+                  f"SSD {ssd}")
+
+
+class capture_first:
+    """Wrap ``module.name`` so that its first call of each ``key(kwargs)``
+    keeps a copy of its tensor arguments (the inputs a kernel took on the
+    served path); restored on exit."""
+
+    def __init__(self, module, name: str, key):
+        self.module, self.name, self.key, self.calls = module, name, key, {}
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def wrapper(*args, **kw):
+            k = self.key(kw)
+            if k not in self.calls:
+                self.calls[k] = (tuple(a.clone() for a in args), kw)
+            return self.orig(*args, **kw)
+
+        setattr(self.module, self.name, wrapper)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def lm_kernel_parity(arch: str, flash_calls: dict, ssd_calls: dict) -> dict:
+    """One launch of each flash variant and one of the SSD scan on the
+    inputs the served prefill gave them, against the plain versions (flash
+    one kv-head group at a time, as phase 10 does)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssm_scan.kernel import (
+        KERNEL_CHUNK,
+        default_segments,
+        ssd_chunked_cuda,
+    )
+    from repro_torch.kernels.ssm_scan.ref import ssd_ref_segmented
+
+    errs = {}
+    for window, ((q, k, v), kw) in sorted(flash_calls.items()):
+        q, k, v = q.float(), k.float(), v.float()
+        o = flash_attention_cuda(q, k, v, **kw)
+        kh = k.shape[2]
+        g = q.shape[2] // kh
+        worst = 0.0
+        for j in range(kh):
+            ref = attention_ref(q[:, :, j * g:(j + 1) * g], k[:, :, j:j + 1], v[:, :, j:j + 1], **kw)
+            worst = max(worst, (o[:, :, j * g:(j + 1) * g] - ref).abs().max().item())
+            del ref
+        if not worst <= TOL_FLASH:
+            fail(f"{arch} flash {tuple(q.shape)} {kw} on its served inputs: max-abs "
+                 f"{worst:.3g} > {TOL_FLASH}")
+        errs["window" if window else "global"] = worst
+        say("lm", f"{arch} flash_attention {tuple(q.shape)} kv heads {kh} {kw}, the prefill's "
+                  f"own inputs: max-abs {worst:.3g} from the plain version (pin {TOL_FLASH})")
+        del q, k, v, o
+    for (args, kw) in ssd_calls.values():
+        b, s, h = args[0].shape[:3]
+        p = default_segments(b, s, h, args[0].device)
+        out = ssd_chunked_cuda(*args, **kw)
+        ref = ssd_ref_segmented(*args, chunk=KERNEL_CHUNK, segments=min(p, -(-s // KERNEL_CHUNK)))
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        if not (rel <= TOL_SSD and bool(torch.isfinite(out).all())):
+            fail(f"{arch} ssd_chunked {tuple(args[0].shape)} on its served inputs: {rel:.3g} of "
+                 f"max|plain| > {TOL_SSD}")
+        errs["ssd"] = (out - ref).abs().max().item()
+        say("lm", f"{arch} ssd_chunked xs {tuple(args[0].shape)} N={args[1].shape[-1]} P={p}, the "
+                  f"prefill's own inputs: {rel:.3g} of max|plain| (pin {TOL_SSD})")
+        del out, ref
+    torch.cuda.empty_cache()
+    return errs
+
+
+def profile_lm(what: str, step) -> None:
+    """``step()`` under torch.profiler: device time by kernel, the idle
+    share, the flash kernel's and the SSD scan's shares."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        fail("the profiler saw no device time")
+    share = {what: sum(e.self_device_time_total for e in kernels if tag in e.key) / 1e3
+             for what, tag in (("flash", "flash_fwd_kernel"), ("ssd", "ssd_"))}
+    say("profile", f"{what}: {wall_ms:.1f} ms wall, {busy_ms:.1f} ms device busy, "
+                   f"idle share {max(0.0, 1 - busy_ms / wall_ms):.1%}; flash kernel "
+                   f"{share['flash']:.1f} ms ({share['flash'] / busy_ms:.1%}), SSD scan "
+                   f"{share['ssd']:.1f} ms ({share['ssd'] / busy_ms:.1%})")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        ms = e.self_device_time_total / 1e3
+        say("profile", f"{ms:10.2f} ms {ms / busy_ms:6.1%} x{e.count:<4d} {e.key[:110]}")
+
+
+def serve_lm(card: str, arch: str, batch: int, seq: int, seed: int) -> dict:
+    """``arch`` whole at its published widths in bf16, weights drawn on the
+    card from ``seed``: one prefill of ``batch`` prompts of ``seq`` tokens
+    through ``make_prefill_step`` (its launches counted), a second one
+    timed, then ``LM_DECODE_STEPS`` greedy steps through ``make_serve_step``
+    with caches of ``seq``; then the kernels held to their plain versions on
+    the inputs the prefill gave them."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import layers, lm
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.graph_export import export_graph
+    from repro_torch.runtime.serve import make_prefill_step, make_serve_step
+
+    release()
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen, device="cuda", max_pos=seq)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    graph = export_graph(cfg, ShapeConfig("prefill", seq, batch, "prefill"))
+    say("lm", f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, heads {cfg.n_heads}/"
+              f"{cfg.n_kv_heads} of {cfg.head_dim}; {nbytes / 1e9:.2f} GB of params on the card "
+              f"({graph.total_param_bytes / 1e9:.2f} GB of bf16 weights by export_graph), drawn "
+              f"in {time.perf_counter() - t0:.1f} s")
+    tokens = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                                      device="cuda")}
+    prefill = make_prefill_step(cfg)
+
+    torch.cuda.reset_peak_memory_stats()
+    with capture_first(layers, "flash_attention", lambda kw: kw["window"]) as flash_calls, \
+            capture_first(ssm_lib, "ssd_chunked", lambda kw: "ssd") as ssd_calls:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, tokens)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = launch_counts()
+    got = (counts["flash_attention_cuda"], counts["flash_attention_cuda_windowed"],
+           counts["ssd_chunked_cuda"])
+    if got != LM_LAUNCHES[arch]:
+        fail(f"{arch} prefill launched (flash, windowed, SSD) {got}, not {LM_LAUNCHES[arch]}")
+    if logits.shape != (batch, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        fail(f"{arch} prefill logits {tuple(logits.shape)} not all finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(params, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if "--profile" in sys.argv[1:]:
+        profile_lm(f"{cfg.name} prefill B={batch} x {seq}", lambda: prefill(params, tokens))
+
+    caches = lm.init_caches(cfg, batch, seq, device="cuda")
+    serve = make_serve_step(cfg)
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    reset_launch_counts()
+    steps = []
+    for _ in range(LM_DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, caches = serve(params, caches, tok)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    if "--profile" in sys.argv[1:]:
+        out = {}
+        profile_lm(f"{cfg.name} decode step B={batch}",
+                   lambda: out.update(step=serve(params, caches, tok)))
+        tok, caches = out["step"]
+    with torch.inference_mode():
+        last, caches = lm.decode_step(cfg, params, caches, tok)
+    dec = launch_counts()
+    if dec["flash_attention_cuda"] or dec["ssd_chunked_cuda"]:
+        fail(f"{arch} decode launched prefill kernels: {dec}")
+    profiled = "--profile" in sys.argv[1:]  # one more step, under the profiler
+    if caches["pos"] != LM_DECODE_STEPS + 1 + profiled or not bool(torch.isfinite(last).all()):
+        fail(f"{arch} decode: pos {caches['pos']}, logits not all finite")
+    peak = torch.cuda.max_memory_allocated()
+    decode_ms = sum(steps[1:]) / (len(steps) - 1) * 1e3
+    say("lm", f"{cfg.name} prefill B={batch} x S={seq}: first {first_s:.3f} s, then "
+              f"{prefill_s:.3f} s wall ({batch * seq / prefill_s:.0f} tokens/s); decode "
+              f"{LM_DECODE_STEPS} greedy steps at B={batch}, caches {seq}: {decode_ms:.2f} ms a "
+              f"step after the first ({steps[0] * 1e3:.1f} ms); peak device memory "
+              f"{peak / 2**30:.2f} GiB; launches a prefill: flash {got[0]} ({got[1]} windowed), "
+              f"SSD {got[2]}; {card}")
+    del params, caches, logits, tokens, last
+    release()
+    errs = lm_kernel_parity(arch, flash_calls, ssd_calls)
+    del flash_calls, ssd_calls
+    release()
+    return {"launches": got, "errors": errs, "prefill_s": prefill_s, "decode_ms": decode_ms,
+            "peak_bytes": peak}
+
+
+def phase_lm(card: str) -> dict:
+    for arch, d_model in LM_SMALL:
+        lm_card_vs_cpu(arch, d_model)
+    release()
+    return {m["arch"]: serve_lm(card, **m) for m in LM_MODELS}
+
+
 # phase 9: replicated (demo_ssm, open-loop Poisson, traced), autoscaled
 # (demo_ssm, bursty) and synchronous (demo_transformer) serving
 REPLICATED_ARRIVALS = 16
@@ -1135,7 +1427,7 @@ def phase_replicas(card: str) -> None:
 
 def flex_attention_yardstick(q, k, v, window: int, softcap: float):
     """FlexAttention under ``torch.compile`` on (B, H, S, hd) copies of q, k,
-    v: the softcap as ``score_mod``, causal (and the window) as a
+    v: the softcap (if any) as ``score_mod``, causal (and the window) as a
     ``block_mask``, GQA by ``enable_gqa``.  Returns the compiled call."""
     import torch
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
@@ -1151,7 +1443,8 @@ def flex_attention_yardstick(q, k, v, window: int, softcap: float):
     block_mask = create_block_mask(mask_mod, B=None, H=None, Q_LEN=s, KV_LEN=s, device="cuda")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     fn = torch.compile(flex_attention, dynamic=False)
-    return lambda: fn(qt, kt, vt, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
+    mod = score_mod if softcap > 0 else None
+    return lambda: fn(qt, kt, vt, score_mod=mod, block_mask=block_mask, enable_gqa=True)
 
 
 def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
@@ -1252,54 +1545,65 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     del x, w
     torch.cuda.empty_cache()
 
-    qkv = randn((n, s, proj), 14)
-    fq = qkv[..., : heads * hd].reshape(n, s, heads, hd)
-    fk = qkv[..., heads * hd: (heads + kvh) * hd].reshape(n, s, kvh, hd)
-    fv = qkv[..., (heads + kvh) * hd:].reshape(n, s, kvh, hd)
-    g = heads // kvh
+    def flash_rows(fq, fk, fv, variants):
+        """A row of each (name, window, softcap, label) variant over q, k, v."""
+        b, s, h, hd = fq.shape
+        kvh = fk.shape[2]
+        g = h // kvh
+        io_bytes = (fq.numel() * 2 + fk.numel() * 2) * 4  # q, o, k, v read/written once
+        for name, window, softcap, label in variants:
+            def plain(window=window, softcap=softcap):
+                for j in range(kvh):
+                    attention_ref(fq[:, :, j * g:(j + 1) * g], fk[:, :, j:j + 1],
+                                  fv[:, :, j:j + 1], causal=True, window=window, softcap=softcap)
+
+            kernel = lambda w=window, c=softcap: flash_attention_cuda(  # noqa: E731
+                fq, fk, fv, causal=True, window=w, softcap=c)
+            live = (s * (s + 1) // 2 if window <= 0
+                    else sum(min(i + 1, window) for i in range(s)))
+            library, flex = None, None
+            t0 = time.perf_counter()
+            try:  # a yardstick only: its failure is reported, never timed
+                flex = flex_attention_yardstick(fq, fk, fv, window, softcap)
+                flex_out = flex().transpose(1, 2)
+                torch.cuda.synchronize()
+            except Exception as e:  # noqa: BLE001
+                flex = None
+                say("times", f"{name}: FlexAttention yardstick FAILED ({type(e).__name__}: "
+                             f"{str(e)[:300]}); library_ms null")
+            if flex is not None:
+                diff = (flex_out - kernel()).abs().max().item()
+                library = cuda_time_ms(flex, 3)
+                say("times", f"{name}: FlexAttention compiled and run in "
+                             f"{time.perf_counter() - t0:.1f} s, max-abs {diff:.3g} from the kernel")
+                del flex, flex_out
+                torch.cuda.empty_cache()
+            row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention/kernel.py:96", kernel, plain, 3,
+                io_bytes, 4 * hd * live * b * h, F32_PRODUCT_S_PER_FLOP,
+                (b, s, h, kvh, hd, label), library=library)
+
+    qkv = randn((n, s, proj), 14)  # demo_transformer's: slices of the fused projection
     softcap = SERVED["softcap"]
-
-    def plain(window):
-        def run():
-            for j in range(kvh):
-                attention_ref(fq[:, :, j * g:(j + 1) * g], fk[:, :, j:j + 1],
-                              fv[:, :, j:j + 1], causal=True, window=window, softcap=softcap)
-        return run
-
-    def live_pairs(window):
-        if window <= 0:
-            return s * (s + 1) // 2
-        return sum(min(i + 1, window) for i in range(s))
-
-    io_bytes = (fq.numel() * 2 + fk.numel() * 2) * 4  # q, o, k, v read/written once
-    for name, window, label in (("flash_attention_fwd", 0, "global causal, softcap"),
-                                ("flash_attention_fwd_window", SERVED["window"],
-                                 f"causal, window {SERVED['window']}, softcap")):
-        kernel = lambda w=window: flash_attention_cuda(  # noqa: E731
-            fq, fk, fv, causal=True, window=w, softcap=softcap)
-        library, flex = None, None
-        t0 = time.perf_counter()
-        try:  # a yardstick only: its failure is reported, never timed
-            flex = flex_attention_yardstick(fq, fk, fv, window, softcap)
-            flex_out = flex().transpose(1, 2)
-            torch.cuda.synchronize()
-        except Exception as e:  # noqa: BLE001
-            flex = None
-            say("times", f"{name}: FlexAttention yardstick FAILED ({type(e).__name__}: "
-                         f"{str(e)[:300]}); library_ms null")
-        if flex is not None:
-            diff = (flex_out - kernel()).abs().max().item()
-            library = cuda_time_ms(flex, 3)
-            say("times", f"{name}: FlexAttention compiled and run in "
-                         f"{time.perf_counter() - t0:.1f} s, max-abs {diff:.3g} from the kernel")
-            del flex, flex_out
-            torch.cuda.empty_cache()
-        row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:96", kernel, plain(window), 3,
-            io_bytes, 4 * hd * live_pairs(window) * n * heads, F32_PRODUCT_S_PER_FLOP,
-            (n, s, heads, kvh, hd, label), library=library)
-    del qkv, fq, fk, fv
+    flash_rows(qkv[..., : heads * hd].reshape(n, s, heads, hd),
+               qkv[..., heads * hd: (heads + kvh) * hd].reshape(n, s, kvh, hd),
+               qkv[..., (heads + kvh) * hd:].reshape(n, s, kvh, hd),
+               (("flash_attention_fwd", 0, softcap, "global causal, softcap"),
+                ("flash_attention_fwd_window", SERVED["window"], softcap,
+                 f"causal, window {SERVED['window']}, softcap")))
+    del qkv
     torch.cuda.empty_cache()
+    # the LM zoo's (phase 8b): gemma2-27b's layers at B=2 and zamba2-2.7b's
+    # shared attention at hd 80, each q, k, v its own tensor
+    for b, h, kvh, hd, variants in (
+            (2, 32, 16, 128, (("flash_attention_fwd_gemma2", 0, 50.0, "gemma2-27b global"),
+                              ("flash_attention_fwd_window_gemma2", 4096, 50.0,
+                               "gemma2-27b window 4096"))),
+            (4, 32, 32, 80, (("flash_attention_fwd_hd80_zamba2", 0, 0.0,
+                              "zamba2-2.7b shared attention, causal"),))):
+        flash_rows(randn((b, s, h, hd), 15), randn((b, s, kvh, hd), 16),
+                   randn((b, s, kvh, hd), 17), variants)
+        torch.cuda.empty_cache()
 
     h, dh, ns, sq = SSM["heads"], SSM["d"] // SSM["heads"], SSM["state"], SSM["seq"]
     args = ssd_case(n, sq, h, dh, ns, 21)
@@ -1380,6 +1684,7 @@ def ssd_design_bytes(b: int, s: int, h: int, dh: int, n: int, q: int, p: int) ->
 
 
 def main() -> None:
+    start = time.perf_counter()
     card = phase_device()
     sys.path.insert(0, str(SRC))
     try:
@@ -1397,7 +1702,12 @@ def main() -> None:
     counts_ssm, per_request_ssm = phase_serve_ssm()
     phase_serve_tenants()
     phase_reference()
+    served_lm = phase_lm(card)
     phase_replicas(card)
+    gemma, zamba = served_lm["gemma2-27b"], served_lm["zamba2-2.7b"]
+    errors.update({"flash_attention_fwd_gemma2": gemma["errors"]["global"],
+                   "flash_attention_fwd_window_gemma2": gemma["errors"]["window"],
+                   "flash_attention_fwd_hd80_zamba2": zamba["errors"]["global"]})
     launches = {
         "quantize_int8": counts_tf["quantize_int8_cuda"],
         "dequant_matmul": counts_tf["dequant_matmul_cuda"],
@@ -1406,18 +1716,29 @@ def main() -> None:
         "flash_attention_fwd_window": counts_tf["flash_attention_cuda_windowed"],
         "dequantize_int8": counts_ssm["dequantize_int8_cuda"],
         "ssd_chunked": counts_ssm["ssd_chunked_cuda"],
+        # a prefill of each LM (phase 8b)
+        "flash_attention_fwd_gemma2": gemma["launches"][0] - gemma["launches"][1],
+        "flash_attention_fwd_window_gemma2": gemma["launches"][1],
+        "flash_attention_fwd_hd80_zamba2": zamba["launches"][0],
     }
     rows = phase_times(card, launches, errors)
+    for r in rows:  # the SSD scan's shape is zamba2-2.7b's: its launches a prefill too
+        if r["name"] == "ssd_chunked":
+            r["launches_zamba2_prefill"] = zamba["launches"][2]
     if "--profile" in sys.argv[1:]:
         phase_accuracy(card)
         phase_mma_peak(card)
     for what, times in (("demo_transformer", per_request), ("demo_ssm", per_request_ssm)):
         say("serve", f"wall time per served request ({what}, 4 per microbatch): "
                      + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in times.items()))
+    for arch, r in served_lm.items():
+        say("lm", f"{arch}: prefill {r['prefill_s']:.3f} s, decode {r['decode_ms']:.2f} ms a step, "
+                  f"peak {r['peak_bytes'] / 2**30:.2f} GiB")
     if not all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows):
         fail("a kernel time is not a positive number")
     import torch
 
+    say("done", f"chip_smoke.py ran in {time.perf_counter() - start:.0f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,9 @@ spec down to the kernels.  Here the knob is the tensor's device:
 argument (default ``"cuda"``).  It also turns TF32 off for float32 matrix
 products and convolutions: the JAX reference computes in full f32, and the
 tolerances the port is held to (1e-5 on the fused dequant-matmul, 2e-5 on
-flash attention) are f32 tolerances that TF32's ~1e-3 would break.
+flash attention) are f32 tolerances that TF32's ~1e-3 would break.  And it
+makes bf16 matrix products sum in f32 (no reduced-precision reductions), as
+the JAX package's bf16 products do (``preferred_element_type=f32``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import torch
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
-    """Validate an entry point's device and pin f32 products to full f32."""
+    """Validate an entry point's device, pin f32 products to full f32 and
+    bf16 products to f32 sums."""
     dev = torch.device(device)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"device must be cpu or cuda, got {dev}")
@@ -33,6 +36,7 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev
 
 

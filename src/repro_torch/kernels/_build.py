@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -42,6 +43,7 @@ SIGNATURES = {
 
 _lib = None
 build_log = ""  # ptxas -v output of the last build (registers, smem, spills)
+build_seconds: dict[str, float] = {}  # wall seconds of each source's nvcc in the last build
 
 
 def _nvcc() -> str:
@@ -78,17 +80,24 @@ def build(force: bool = False) -> Path:
     BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
-        objs, procs = [], []
+        objs, procs = [], {}
+        t0 = time.perf_counter()
         for src in sources:
             obj = Path(tmp) / (src.stem + ".o")
             objs.append(obj)
-            procs.append((src, subprocess.Popen(
-                [nvcc, *ARCH, *FLAGS, "-c", str(src), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            with open(Path(tmp) / (src.stem + ".log"), "w") as log:
+                procs[src] = subprocess.Popen(
+                    [nvcc, *ARCH, *FLAGS, "-c", str(src), "-o", str(obj)],
+                    stdout=log, stderr=subprocess.STDOUT)
+        build_seconds.clear()
+        while len(build_seconds) < len(procs):  # each one's own time, all in parallel
+            for src, proc in procs.items():
+                if src.name not in build_seconds and proc.poll() is not None:
+                    build_seconds[src.name] = time.perf_counter() - t0
+            time.sleep(0.05)
         logs, failed = [], []
-        for src, proc in procs:
-            out, _ = proc.communicate()
-            logs.append(f"== {src.name}\n{out}")
+        for src, proc in procs.items():
+            logs.append(f"== {src.name}\n{(Path(tmp) / (src.stem + '.log')).read_text()}")
             if proc.returncode != 0:
                 failed.append(src.name)
         build_log = "\n".join(logs)

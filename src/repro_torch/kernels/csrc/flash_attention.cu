@@ -16,7 +16,10 @@
 // FLOPs * 3 / 495 TFLOP/s.  Route: mma.sync.m16n8k8 in FlashAttention-2
 // form (wgmma would want V transposed in shared memory; later work).
 //
-// One block of 4 warps owns 128 queries of one head (64 at hd 256); each
+// Head dims: 64, 80, 112, 128, 160 and 256 (every one the LM zoo's configs
+// use), each a multiple of 16.
+//
+// One block of 4 warps owns 128 queries of one head (64 at hd > 128); each
 // warp owns 32 query rows as two 16-row fragments (one at hd 256), so every
 // K or V fragment it splits feeds two products, and keeps its S tile and O
 // accumulator in mma fragments in registers, with m and l per row.  The
@@ -56,7 +59,8 @@ constexpr int BK = 32;  // keys per kv tile
 
 // MT 16-row fragments per warp: a K or V fragment, once split, feeds MT
 // products.  Two at hd <= 128 (255 registers at hd 128, two blocks per SM);
-// one at hd 256, where the O accumulator alone takes 128 registers.
+// one above (hd 160, 256), where the O accumulator alone takes 80 or 128
+// registers.
 template <int HD>
 struct Tile {
   static constexpr int MT = HD <= 128 ? 2 : 1, BQ = 16 * MT * NW;
@@ -80,6 +84,46 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long lon
   }
 }
 
+// S += Q K^T over hd columns [kc, kc + W): 3 split-TF32 mma per 8 columns
+// into a fresh fragment, W / 8 * 3 <= 12 steps, then added to S in f32
+template <int MT, int NKT, int QS, int W>
+__device__ __forceinline__ void qk_slice(float (&sacc)[MT][NKT][4], const float* qrow,
+                                         const float* krow, int kc) {
+  float part[MT][NKT][4] = {};
+#pragma unroll
+  for (int kk = kc; kk < kc + W; kk += 8) {
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float2 x0 = *reinterpret_cast<const float2*>(qrow + 16 * mt * QS + kk);
+      const float2 x1 = *reinterpret_cast<const float2*>(qrow + (16 * mt + 8) * QS + kk);
+      split(x0.x, ah[mt][0], al[mt][0]);
+      split(x1.x, ah[mt][1], al[mt][1]);
+      split(x0.y, ah[mt][2], al[mt][2]);
+      split(x1.y, ah[mt][3], al[mt][3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NKT; ++nt) {
+      const float2 kv = *reinterpret_cast<const float2*>(krow + nt * 8 * QS + kk);
+      uint32_t bh0, bl0, bh1, bl1;
+      split(kv.x, bh0, bl0);
+      split(kv.y, bh1, bl1);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma(part[mt][nt], al[mt], bh0, bh1);
+        mma(part[mt][nt], ah[mt], bl0, bl1);
+        mma(part[mt][nt], ah[mt], bh0, bh1);
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NKT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[mt][nt][e] += part[mt][nt][e];
+}
+
 template <int HD>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -87,6 +131,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int H, int G, long long q_sb, long long q_ss, long long k_sb,
                  long long k_ss, long long v_sb, long long v_ss, int causal,
                  int window, float softcap, float scale) {
+  static_assert(HD % 16 == 0, "hd slices are 32 wide, the last one 16");
   constexpr int MT = Tile<HD>::MT, BQ = Tile<HD>::BQ;
   constexpr int QS = HD + 8, VS = HD + 4;
   constexpr int NKT = BK / 8, NDT = HD / 8;  // 8-key and 8-column fragments
@@ -139,46 +184,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // S = Q K^T: lane (g, t) reads q and k at hd kk + 2t and kk + 2t + 1.
     // Each 32-wide slice of hd is summed on the tensor cores in a fresh
-    // fragment and added to S on the FMA units (see P V below).
+    // fragment and added to S on the FMA units (see P V below); a head dim
+    // that is not a multiple of 32 (80, 112) ends in one 16-wide slice.
     float sacc[MT][NKT][4] = {};
     const float* qrow = Qs + r0 * QS + 2 * t;
     const float* krow = Ks + g * QS + 2 * t;
 #pragma unroll 1
-    for (int kc = 0; kc < HD; kc += 32) {
-      float part[MT][NKT][4] = {};
-#pragma unroll
-      for (int kk = kc; kk < kc + 32; kk += 8) {
-        uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const float2 x0 = *reinterpret_cast<const float2*>(qrow + 16 * mt * QS + kk);
-          const float2 x1 = *reinterpret_cast<const float2*>(qrow + (16 * mt + 8) * QS + kk);
-          split(x0.x, ah[mt][0], al[mt][0]);
-          split(x1.x, ah[mt][1], al[mt][1]);
-          split(x0.y, ah[mt][2], al[mt][2]);
-          split(x1.y, ah[mt][3], al[mt][3]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NKT; ++nt) {
-          const float2 kv = *reinterpret_cast<const float2*>(krow + nt * 8 * QS + kk);
-          uint32_t bh0, bl0, bh1, bl1;
-          split(kv.x, bh0, bl0);
-          split(kv.y, bh1, bl1);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma(part[mt][nt], al[mt], bh0, bh1);
-            mma(part[mt][nt], ah[mt], bl0, bl1);
-            mma(part[mt][nt], ah[mt], bh0, bh1);
-          }
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NKT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sacc[mt][nt][e] += part[mt][nt][e];
-    }
+    for (int kc = 0; kc < HD - HD % 32; kc += 32)
+      qk_slice<MT, NKT, QS, 32>(sacc, qrow, krow, kc);
+    if constexpr (HD % 32 != 0) qk_slice<MT, NKT, QS, HD % 32>(sacc, qrow, krow, HD - HD % 32);
 
     // online softmax over this tile
     const bool edge = k_lo + BK > S || (causal && k_lo + BK - 1 > q_lo) ||
@@ -326,15 +340,17 @@ extern "C" int seifer_flash_attention_fwd(
   const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v;
   float* of = (float*)o;
   switch (hd) {
-    case 64:
-      return launch<64>(qf, kf, vf, of, B, S, H, KH, q_sb, q_ss, k_sb, k_ss, v_sb,
-                        v_ss, causal, window, softcap, scale, st);
-    case 128:
-      return launch<128>(qf, kf, vf, of, B, S, H, KH, q_sb, q_ss, k_sb, k_ss, v_sb,
-                         v_ss, causal, window, softcap, scale, st);
-    case 256:
-      return launch<256>(qf, kf, vf, of, B, S, H, KH, q_sb, q_ss, k_sb, k_ss, v_sb,
-                         v_ss, causal, window, softcap, scale, st);
+#define SEIFER_FLASH_CASE(D)                                                     \
+  case D:                                                                        \
+    return launch<D>(qf, kf, vf, of, B, S, H, KH, q_sb, q_ss, k_sb, k_ss, v_sb, \
+                     v_ss, causal, window, softcap, scale, st);
+    SEIFER_FLASH_CASE(64)
+    SEIFER_FLASH_CASE(80)
+    SEIFER_FLASH_CASE(112)
+    SEIFER_FLASH_CASE(128)
+    SEIFER_FLASH_CASE(160)
+    SEIFER_FLASH_CASE(256)
+#undef SEIFER_FLASH_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,7 +1,8 @@
 """Wrapper of the CUDA flash-attention forward kernel (``csrc/flash_attention.cu``).
 
 Checks what the kernel takes and raises on anything else: float32 CUDA
-tensors, self-attention (``Sq == Skv``), ``hd`` in {64, 128, 256},
+tensors, self-attention (``Sq == Skv``), ``hd`` in ``HEAD_DIMS`` (every
+head dim of the LM zoo's configs: 64, 80, 112, 128, 160, 256),
 ``H`` a multiple of ``KH``, and rows whose (heads, hd) block is packed and
 16-byte aligned (the kernel stages rows by 16-byte ``cp.async`` copies) --
 the batch and sequence strides may be anything else that keeps rows
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 112, 128, 160, 256)
 
 
 def _require_rows(t: torch.Tensor, name: str) -> None:

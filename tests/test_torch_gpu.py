@@ -8,8 +8,10 @@ is False.  Run on a CUDA machine with
 Shapes: small ragged ones, and the shapes the served path gives each kernel
 (``chip_smoke.py``: demo_transformer at d=4096, H=32, KH=16, hd=128,
 S=8192, and demo_ssm at d=5120, H=80, dh=N=64, S=8192, 4 requests per
-microbatch).  This file imports no JAX: the
-machine with the card has none.
+microbatch).  The flash kernel also at every head dim of the LM zoo, the
+flash op on bf16/f16 inputs, and a small-width LM of each family on the
+card against the CPU.  This file imports no JAX: the machine with the card
+has none.
 """
 
 from __future__ import annotations
@@ -449,3 +451,117 @@ def test_replicated_demo_mlp_card_matches_cpu(cuda):
     for got, ref in zip(outs, couts):
         top = ref.abs().max().item()
         assert (got.cpu() - ref).abs().max().item() <= INT8_MAX_REL_ERROR * top
+
+
+ZOO_HEAD_DIMS = (64, 80, 112, 128, 160, 256)
+
+
+@pytest.mark.parametrize("hd", ZOO_HEAD_DIMS)
+@pytest.mark.parametrize("s,g,causal,window,softcap", [
+    (1000, 2, True, 0, 50.0),    # causal, soft-capped GQA, ragged S
+    (300, 1, True, 100, 50.0),   # a window across kv tiles
+    (129, 4, False, 0, 0.0),     # non-causal, G = 4
+    (65, 2, False, 17, 50.0),    # non-causal window below a tile
+])
+def test_flash_every_zoo_head_dim(cuda, hd, s, g, causal, window, softcap):
+    """Every head dim the LM zoo's configs use (zamba2 80, kimi-k2 112,
+    pixtral 160; 80 and 112 end their QK^T in a 16-wide slice) against the
+    plain version at the f32 pin."""
+    q, k, v = _flash_case(cuda, 2, s, 2 * g, 2, hd, 30)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)
+    ref = attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("hd", [80, 128])
+def test_flash_op_takes_half_inputs(cuda, dtype, hd):
+    """The op upcasts bf16/f16 q, k, v to f32 (exactly), runs the kernel and
+    returns q.dtype: the kernel's f32 output rounded once."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = (t.to(dtype) for t in _flash_case(cuda, 2, 300, 4, 2, hd, 31))
+    out = flash_attention(q, k, v, causal=True, window=64, softcap=50.0)
+    assert out.dtype == dtype and out.shape == q.shape
+    want = flash_attention_cuda(q.float(), k.float(), v.float(), causal=True, window=64,
+                                softcap=50.0)
+    assert torch.equal(out, want.to(dtype))
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=True, window=64, softcap=50.0)
+    bound = 2e-5 + torch.finfo(dtype).eps * ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= bound
+
+
+# one arch of each family; f32 tolerances as the CPU tests' (tests/_lm_parity.py):
+# 1e-4 of max|ref|, looser where the JAX package (so the port) rounds to bf16
+# inside an f32 model: the mLSTM output, the Mamba2 decode's conv window
+LM_FAMILIES = ["gemma2-27b", "pixtral-12b", "whisper-small", "phi3.5-moe-42b-a6.6b",
+               "xlstm-125m", "zamba2-2.7b"]
+LM_F32_TOL = {("ssm", "forward"): 5e-3, ("ssm", "prefill"): 5e-3, ("ssm", "decode"): 5e-3,
+              ("hybrid", "decode"): 1e-2}
+
+
+def _rel(got, want) -> float:
+    return ((got.float().cpu() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+# xLSTM is compared in f32 only: in bf16 the reference itself is chaotic
+# (one bf16 ulp of noise on its embeddings moves the JAX package's output
+# by 0.81 of max|ref| at reduced(), S=16), and the card's and the CPU's bf16
+# GEMMs round differently (0.099 measured); its bf16 CPU run is held to the
+# JAX package at 3e-2 in tests/test_torch_lm_recurrent.py
+LM_CASES = [(name, dtype) for name in LM_FAMILIES for dtype in (torch.float32, torch.bfloat16)
+            if not (name == "xlstm-125m" and dtype == torch.bfloat16)]
+
+
+@pytest.mark.parametrize("name,dtype", LM_CASES,
+                         ids=[f"{n}-{'f32' if d == torch.float32 else 'bf16'}" for n, d in LM_CASES])
+def test_small_lm_card_matches_cpu(cuda, name, dtype):
+    """``reduced()`` of each family: forward_hidden, the prefill step and
+    three decode steps (logits and caches) on the card against the CPU with
+    the same weights and inputs; f32 within 1e-4 of max|cpu| (the families
+    that round to bf16 inside, as in the CPU tests), bf16 within 3e-2."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.runtime.serve import make_prefill_step, make_serve_step
+
+    cfg = reduced(ARCHS[name])
+    base = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu", max_pos=64)
+    if dtype == torch.float32:
+        base = tree_map(lambda t: t.float() if t.is_floating_point() else t, base)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 16))}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal((2, 16, cfg.d_model), dtype=np.float32) * 0.5
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal((2, 4, lm.PATCH_DIM), dtype=np.float32) * 0.1
+    toks = rng.integers(0, cfg.vocab_size, (3, 2, 1))
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), base)
+        bt = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        bt = {k: (v.to(dtype) if v.is_floating_point() else v) for k, v in bt.items()}
+        with torch.inference_mode():
+            hidden, _ = lm.forward_hidden(cfg, p, bt)
+            caches = lm.init_caches(cfg, 2, 32, enc_len=16, device=dev)
+            steps = []
+            for t in toks:
+                logits, caches = lm.decode_step(cfg, p, caches, torch.as_tensor(t, device=dev),
+                                                enc_len=16)
+                steps.append(logits)
+        prefill = make_prefill_step(cfg)(p, bt)
+        nxt, _ = make_serve_step(cfg, enc_len=16)(p, caches, torch.as_tensor(toks[0], device=dev))
+        assert nxt.device.type == torch.device(dev).type and nxt.dtype == torch.int32
+        runs[str(dev)] = (hidden, prefill, steps, tree_leaves(dict(caches, pos=0)))
+    (ch, cp, cs, cc), (gh, gp, gs, gc) = runs["cpu"], runs[str(cuda)]
+    f32 = dtype == torch.float32
+    tol = {step: (LM_F32_TOL.get((cfg.family, step), 1e-4) if f32 else 3e-2)
+           for step in ("forward", "prefill", "decode")}
+    assert gh.is_cuda and _rel(gh, ch) <= tol["forward"]
+    assert _rel(gp, cp) <= tol["prefill"]
+    for got, want in zip(gs, cs):
+        assert _rel(got, want) <= tol["decode"]
+    for got, want in zip(gc, cc):
+        if isinstance(want, torch.Tensor) and want.abs().max() > 0:
+            assert _rel(got, want) <= tol["decode"]

@@ -1,0 +1,145 @@
+"""The port's LM zoo against the JAX package: ssm (xLSTM) and hybrid
+(zamba2) archs.
+
+For xlstm-125m and zamba2-2.7b at ``reduced()``: the configs and the
+``export_graph`` of every shape cell equal, ``init_params``' tree, shapes
+and dtypes equal, ``forward_hidden`` in f32 and bf16, three decode steps,
+a greedy serve step and the prefill step against the JAX package
+(tolerances: ``tests/_lm_parity.py``).  Then each recurrent layer alone at
+1e-5 in f32: zamba2's mamba layer, whose scan goes through the port's
+``ssd_chunked`` op, its decode step, and the xLSTM's sLSTM and mLSTM; and
+zamba2 at S = 2048, where the shared attention takes the flash op.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _lm_parity import (
+    RECURRENT,
+    TOL_F32,
+    batch_np,
+    both_params,
+    check_config,
+    check_decode_and_prefill,
+    check_export_graph,
+    check_forward,
+    check_init_params,
+    configs,
+    jlm,
+    params_from_numpy,
+    rel_err,
+    tlm,
+    to_jax,
+    to_numpy,
+    to_torch,
+)
+from repro.models import ssm as jssm
+from repro.models import xlstm as jxlstm
+from repro_torch.models import layers as tlayers
+from repro_torch.models import ssm as tssm
+from repro_torch.models import xlstm as txlstm
+
+TOL_LAYER = 1e-5
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+def test_config_matches(name):
+    check_config(name)
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+def test_export_graph_matches(name):
+    check_export_graph(name)
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+def test_init_params_tree(name):
+    check_init_params(name)
+
+
+@pytest.mark.parametrize("f32", [True, False], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", RECURRENT)
+def test_forward_hidden(name, f32):
+    check_forward(name, f32=f32)
+
+
+@pytest.mark.parametrize("f32", [True, False], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", RECURRENT)
+def test_decode_serve_and_prefill(name, f32):
+    check_decode_and_prefill(name, f32=f32)
+
+
+def _layer(name: str, key: str, index):
+    jcfg, tcfg = configs(name)
+    jp = jax.tree.map(lambda a: a[index].astype(jnp.float32)
+                      if jnp.issubdtype(a.dtype, jnp.floating) else a[index],
+                      jlm.init_params(jcfg, jax.random.PRNGKey(0), max_pos=8)["blocks"][key])
+    return jcfg, tcfg, jp, params_from_numpy(to_numpy(jp), "cpu")
+
+
+def _x(cfg, b, s, seed):
+    return np.random.default_rng(seed).standard_normal((b, s, cfg.d_model), dtype=np.float32)
+
+
+@pytest.mark.parametrize("s", [16, 512])
+def test_mamba_layer_through_ssd_chunked(s, monkeypatch):
+    """zamba2's mamba layer, its scan through the port's ssd_chunked op
+    (chunk 256; one chunk at S = 16, two at 512) plus the D skip, within
+    1e-5 of the JAX package's mamba_forward (its inline chunked scan)."""
+    calls = []
+    op = tssm.ssd_chunked
+    monkeypatch.setattr(tssm, "ssd_chunked",
+                        lambda *a, **kw: calls.append(kw["chunk"]) or op(*a, **kw))
+    jcfg, tcfg, jp, tp = _layer("zamba2-2.7b", "mamba", (0, 0))
+    x = _x(jcfg, 2, s, 1)
+    want = jax.jit(lambda p, x: jssm.mamba_forward(jcfg, p, x))(jp, jnp.asarray(x))
+    got = tssm.mamba_forward(tcfg, tp, torch.from_numpy(x))
+    assert calls == [tssm.DEFAULT_CHUNK]
+    assert rel_err(got, want) <= TOL_LAYER
+
+
+def test_mamba_decode_steps_match():
+    jcfg, tcfg, jp, tp = _layer("zamba2-2.7b", "mamba", (0, 0))
+    jc, tc = jssm.mamba_init_cache(jcfg, 2), tssm.mamba_init_cache(tcfg, 2)
+    step = jax.jit(lambda p, c, x: jssm.mamba_step(jcfg, p, c, x))
+    for i in range(4):
+        x = _x(jcfg, 2, 1, 10 + i)
+        jc, jy = step(jp, jc, jnp.asarray(x))
+        tc, ty = tssm.mamba_step(tcfg, tp, tc, torch.from_numpy(x))
+        assert rel_err(ty, jy) <= TOL_LAYER
+    assert rel_err(tc["ssm"], jc["ssm"]) <= TOL_LAYER
+    assert rel_err(tc["conv"], jc["conv"]) == 0.0
+
+
+@pytest.mark.parametrize("kind", ["slstm", "mlstm"])
+def test_xlstm_layers_match(kind):
+    index = 0 if kind == "slstm" else (0, 0)
+    jcfg, tcfg, jp, tp = _layer("xlstm-125m", kind, index)
+    jf = {"slstm": jxlstm.slstm_forward, "mlstm": jxlstm.mlstm_forward}[kind]
+    tf = {"slstm": txlstm.slstm_forward, "mlstm": txlstm.mlstm_forward}[kind]
+    x = _x(jcfg, 2, 16, 2)
+    want = jax.jit(lambda p, x: jf(jcfg, p, x))(jp, jnp.asarray(x))
+    assert rel_err(tf(tcfg, tp, torch.from_numpy(x)), want) <= TOL_LAYER
+
+
+def test_zamba2_long_sequence_takes_the_flash_op(monkeypatch):
+    """S = 2048: every shared-attention application goes through the port's
+    flash_attention op (its plain version here), within 1e-4 of the JAX
+    package in f32.  (bf16 at this length is not compared: the JAX
+    package's own jitted and eager runs differ by 8.8e-2 there.)"""
+    calls = []
+    flash = tlayers.flash_attention
+    monkeypatch.setattr(tlayers, "flash_attention",
+                        lambda q, k, v, **kw: calls.append(q.shape) or flash(q, k, v, **kw))
+    jcfg, tcfg = configs("zamba2-2.7b")
+    jp, tp = both_params(jcfg, f32=True)
+    batch = batch_np(jcfg, 1, 2048, seed=0, f32=True)
+    jh, _ = jax.jit(lambda p, bt: jlm.forward_hidden(jcfg, p, bt))(jp, to_jax(batch))
+    th, _ = tlm.forward_hidden(tcfg, tp, to_torch(batch))
+    assert len(calls) == tcfg.n_layers // tcfg.attn_every
+    assert rel_err(th, jh) <= TOL_F32
