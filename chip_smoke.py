@@ -100,6 +100,39 @@ the first fault:
    count is printed beside it, with
    its segments P, the FLOPs and bytes of the segmented design (state pass
    and folds counted) and its time unsegmented (P=1) against P.
+11. train -- the training path (``runtime.train``, ``lm.loss_fn`` with
+   every layer group rematerialized, the flash backward kernel,
+   ``runtime.checkpoint``), run before phase 10 (its times come after
+   phase 10's rows).  (a) The backward kernel against
+   ``flash_backward_ref`` at S=2048 (and a ragged S=1999) for each head dim
+   64-256, causal G=1, window 512 with softcap 50 at G=2, bidirectional
+   G=4: the forward's o and logsumexp (``lse=True``) within 2e-5 of
+   max|plain| against ``attention_ref_lse``, then dq, dk, dv within 2e-5 of
+   max|plain| against ``flash_backward_ref`` fed the PLAIN o and lse, so the
+   whole gradient is held to an independent reference; two runs equal.
+   (b) llama3.2-1b whole (16 layers, d=2048, 32/8 heads of 64, vocab
+   128256, tied embeddings: 1.236 B params), bf16 params and f32 moments,
+   at train_4k's S=4096 with its global batch of 256 cut to 16, as 2
+   microbatches of 8; 4 AdamW steps (lr 1e-3, warmup 1) on one repeated
+   batch of the bigram stream of ``examples/train_lm.py``: every loss
+   finite and the last below the first, 64 flash forward and 32 backward
+   launches a step.  (c) gemma2-27b at full width, depth cut to one local
+   and one global layer (2.31 B params), B=1 x S=8192 (its 4096 window
+   masks), 2 steps: 4 forward (2 windowed) and 2 backward launches a step.
+   Each prints its losses, seconds a step, tokens/s and peak memory; the
+   backward's inputs of the first step of each (b)/(c) variant are kept,
+   and their o and lse, then one backward launch on them, are held to the
+   plain versions as in (a), one (batch, kv-head group) at a time.
+   (d) llama3.2-1b at full width cut to 2 layers, under
+   ``torch.use_deterministic_algorithms``: a step, a checkpoint, two steps;
+   then restore and the same two steps: every leaf ``torch.equal``.  It
+   runs in a child process (``chip_smoke.py --resume-check``) started with
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, which deterministic cuBLAS needs,
+   so every other phase keeps cuBLAS's default workspace.  (e) After phase 10: the backward kernel timed on (b)'s
+   and (c)'s own inputs beside its bound (10 hd FLOPs a live pair at 3
+   TF32 passes; this design's 14 hd beside it), its plain version per
+   kv-head group summed, and FlexAttention's backward under
+   ``torch.compile`` ((forward + backward) - forward).
 
 The last three lines are a JSON object of the kernels, the card's name and
 power limit, and the device line.
@@ -134,6 +167,8 @@ SRC = ROOT / "src"
 # torch.compile's caches (the FlexAttention yardstick) stay inside the checkout
 for _var, _sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
     os.environ.setdefault(_var, str(ROOT / "build" / _sub))
+# phase 11(d) runs in a child process with this flag, under deterministic cuBLAS
+RESUME_FLAG = "--resume-check"
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM, f32 FMA and
 # the dense tensor cores at TF32 and bf16
@@ -1069,11 +1104,13 @@ def profile_lm(what: str, step) -> None:
     if busy_ms <= 0:
         fail("the profiler saw no device time")
     share = {what: sum(e.self_device_time_total for e in kernels if tag in e.key) / 1e3
-             for what, tag in (("flash", "flash_fwd_kernel"), ("ssd", "ssd_"))}
+             for what, tag in (("flash", "flash_fwd_kernel"), ("flash_bwd", "flash_bwd_"),
+                               ("ssd", "ssd_"))}
     say("profile", f"{what}: {wall_ms:.1f} ms wall, {busy_ms:.1f} ms device busy, "
                    f"idle share {max(0.0, 1 - busy_ms / wall_ms):.1%}; flash kernel "
-                   f"{share['flash']:.1f} ms ({share['flash'] / busy_ms:.1%}), SSD scan "
-                   f"{share['ssd']:.1f} ms ({share['ssd'] / busy_ms:.1%})")
+                   f"{share['flash']:.1f} ms ({share['flash'] / busy_ms:.1%}), flash backward "
+                   f"kernels {share['flash_bwd']:.1f} ms ({share['flash_bwd'] / busy_ms:.1%}), "
+                   f"SSD scan {share['ssd']:.1f} ms ({share['ssd'] / busy_ms:.1%})")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         ms = e.self_device_time_total / 1e3
         say("profile", f"{ms:10.2f} ms {ms / busy_ms:6.1%} x{e.count:<4d} {e.key[:110]}")
@@ -1425,12 +1462,12 @@ def phase_replicas(card: str) -> None:
     serve_autoscaled(card, graph, ex)
 
 
-def flex_attention_yardstick(q, k, v, window: int, softcap: float):
-    """FlexAttention under ``torch.compile`` on (B, H, S, hd) copies of q, k,
-    v: the softcap (if any) as ``score_mod``, causal (and the window) as a
-    ``block_mask``, GQA by ``enable_gqa``.  Returns the compiled call."""
+def flex_mask(s: int, window: int, softcap: float):
+    """FlexAttention's (score_mod, block_mask) of causal attention over S
+    tokens: the softcap (if any) as ``score_mod``, causal (and the window)
+    as a ``block_mask``."""
     import torch
-    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    from torch.nn.attention.flex_attention import create_block_mask
 
     def score_mod(score, b, h, q_idx, kv_idx):
         return softcap * torch.tanh(score / softcap)
@@ -1439,12 +1476,419 @@ def flex_attention_yardstick(q, k, v, window: int, softcap: float):
         ok = q_idx >= kv_idx
         return ok & (q_idx - kv_idx < window) if window > 0 else ok
 
-    s = q.shape[1]
     block_mask = create_block_mask(mask_mod, B=None, H=None, Q_LEN=s, KV_LEN=s, device="cuda")
+    return (score_mod if softcap > 0 else None), block_mask
+
+
+def flex_attention_yardstick(q, k, v, window: int, softcap: float):
+    """FlexAttention under ``torch.compile`` on (B, H, S, hd) copies of q, k,
+    v (``flex_mask``; GQA by ``enable_gqa``).  Returns the compiled call."""
+    import torch
+    from torch.nn.attention.flex_attention import flex_attention
+
+    mod, block_mask = flex_mask(q.shape[1], window, softcap)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     fn = torch.compile(flex_attention, dynamic=False)
-    mod = score_mod if softcap > 0 else None
     return lambda: fn(qt, kt, vt, score_mod=mod, block_mask=block_mask, enable_gqa=True)
+
+
+# phase 11: the training path (repro_torch.runtime.train, lm.loss_fn, the
+# flash backward kernel, runtime.checkpoint)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1)
+# llama3.2-1b whole (src/repro/configs/archs.py:77-90); train_4k's S=4096,
+# its global batch of 256 cut to 16 as 2 microbatches of 8.  Launches a
+# step: flash forward 16 layers x 2 (remat) x 2 microbatches, backward 32
+TRAIN_LLAMA = dict(arch="llama3.2-1b", layers=0, batch=16, microbatch=8, seq=4096, steps=4,
+                   launches=(64, 32), seed=71)
+# gemma2-27b at full width (archs.py:109-128), depth cut to one local +
+# global group (2 of 46 layers); B=1 x S=8192, where its 4096 window masks
+TRAIN_GEMMA = dict(arch="gemma2-27b", layers=2, batch=1, microbatch=0, seq=8192, steps=2,
+                   launches=(4, 2), seed=73)
+# resume equals uninterrupted: llama3.2-1b at full width cut to 2 of 16
+# layers (a checkpoint of 3.6 GB), B=4 x 4096
+RESUME = dict(arch="llama3.2-1b", layers=2, batch=4, seq=4096, seed=75)
+# of max|plain| per gradient: the JAX package's gradient tolerance is 1e-4;
+# the kernel measured 4.7e-6 at worst over the sweep, so the pin is 2e-5
+TOL_FLASH_BWD = 2e-5
+
+
+def flash_bwd_cases() -> list[tuple]:
+    """(b, s, h, kh, hd, causal, window, softcap): each head dim of the zoo
+    causal at G=1, windowed and soft-capped at G=2, bidirectional at G=4,
+    and at a ragged S."""
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+
+    return [case for hd in HEAD_DIMS for case in (
+        (1, 2048, 2, 2, hd, True, 0, 0.0),
+        (2, 2048, 4, 2, hd, True, 512, 50.0),
+        (1, 2048, 8, 2, hd, False, 0, 0.0),
+        (1, 1999, 4, 2, hd, True, 0, 50.0))]
+
+
+def kv_groups(q, k):
+    """(batch, query-head, kv-head) slices of each (batch, kv-head group)."""
+    kh = k.shape[2]
+    g = q.shape[2] // kh
+    for b in range(q.shape[0]):
+        for j in range(kh):
+            yield slice(b, b + 1), slice(j * g, (j + 1) * g), slice(j, j + 1)
+
+
+def plain_residuals(q, k, v, o, lse, kw, what: str):
+    """The plain o and lse (``attention_ref_lse``) of q, k, v; fails unless
+    the kernel's ``o`` and ``lse`` are each within ``TOL_FLASH`` of
+    max|plain|.  Returns (o, lse, o's and lse's max|err| / max|plain|)."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref_lse
+
+    o_ref, lse_ref = attention_ref_lse(q, k, v, **kw)
+    rel = [((a - w).abs().max() / w.abs().max()).item() for a, w in ((o, o_ref), (lse, lse_ref))]
+    if not max(rel) <= TOL_FLASH:
+        fail(f"flash forward with lse {what} {kw}: o {rel[0]:.3g}, lse {rel[1]:.3g} of "
+             f"max|plain| > {TOL_FLASH}")
+    return o_ref, lse_ref, rel[0], rel[1]
+
+
+def flash_bwd_group_errors(args, kw, what: str) -> tuple[float, float, float]:
+    """Over every (batch, kv-head group): the forward's o and lse against
+    ``attention_ref_lse`` on that group's slice (``plain_residuals``), and
+    the backward kernel's dq, dk, dv against ``flash_backward_ref`` fed that
+    plain o and lse.  Returns (max-abs and max of max|err| / max|plain| of
+    the gradients, max of o's and lse's max|err| / max|plain|)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_backward_ref
+
+    q, k, v, o, lse, do = args
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    worst_abs, worst_rel, worst_fwd = 0.0, 0.0, 0.0
+    for bs, hs, ks in kv_groups(q, k):
+        qs, k_s, vs = q[bs, :, hs], k[bs, :, ks], v[bs, :, ks]
+        o_ref, lse_ref, o_rel, lse_rel = plain_residuals(qs, k_s, vs, o[bs, :, hs], lse[bs, hs],
+                                                         kw, what)
+        worst_fwd = max(worst_fwd, o_rel, lse_rel)
+        want = flash_backward_ref(qs, k_s, vs, o_ref, lse_ref, do[bs, :, hs], **kw)
+        for a, w in zip((got[0][bs, :, hs], got[1][bs, :, ks], got[2][bs, :, ks]), want):
+            err = (a - w).abs().max().item()
+            worst_abs = max(worst_abs, err)
+            worst_rel = max(worst_rel, err / w.abs().max().item())
+        del want, o_ref, lse_ref
+    del got
+    torch.cuda.empty_cache()
+    return worst_abs, worst_rel, worst_fwd
+
+
+def flash_bwd_parity(card: str) -> float:
+    """(a) The forward's o and lse, then the backward kernel, against their
+    plain versions over the sweep; the plain backward takes the plain o and
+    lse."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda,
+        flash_attention_cuda,
+    )
+    from repro_torch.kernels.flash_attention.ref import flash_backward_ref
+
+    worst, worst_fwd = 0.0, 0.0
+    cases = flash_bwd_cases()
+    for n, (b, s, h, kh, hd, causal, window, softcap) in enumerate(cases):
+        q, k, v = (randn((b, s, heads, hd), 80 + 4 * n + i)
+                   for i, heads in enumerate((h, kh, kh)))
+        do = randn((b, s, h, hd), 83 + 4 * n)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        o, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
+        o_ref, lse_ref, o_rel, lse_rel = plain_residuals(q, k, v, o, lse, kw, (b, s, h, kh, hd))
+        worst_fwd = max(worst_fwd, o_rel, lse_rel)
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        want = flash_backward_ref(q, k, v, o_ref, lse_ref, do, **kw)
+        torch.cuda.synchronize()
+        rel = [((a - w).abs().max() / w.abs().max()).item() for a, w in zip(got, want)]
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            fail(f"flash backward {(b, s, h, kh, hd)} {kw}: two runs differ")
+        if not max(rel) <= TOL_FLASH_BWD:
+            fail(f"flash backward {(b, s, h, kh, hd)} {kw}: dq, dk, dv "
+                 f"{', '.join(f'{e:.3g}' for e in rel)} of max|plain| > {TOL_FLASH_BWD}")
+        worst = max(worst, *rel)
+    say("train", f"flash forward with lse and backward kernel vs plain, {len(cases)} cases (hd "
+                 f"64-256; causal G=1, window 512 + softcap 50 G=2, bidirectional G=4, ragged "
+                 f"S=1999; S=2048): o and lse worst {worst_fwd:.3g} of max|plain| against "
+                 f"attention_ref_lse (pin {TOL_FLASH}); dq, dk, dv worst {worst:.3g} of max|plain| "
+                 f"against flash_backward_ref fed the plain o and lse (pin {TOL_FLASH_BWD}), every "
+                 f"case deterministic (two runs equal)")
+    return worst
+
+
+def bigram_tokens(vocab: int, batch: int, seq: int, seed: int):
+    """``examples/train_lm.py``'s synthetic stream, drawn in torch on the
+    card: a first token from a Zipf-like law, then a fixed random bigram
+    table (learnable)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = torch.randint(0, vocab, (vocab,), generator=gen, device="cuda")
+    law = 1.0 / torch.arange(1, vocab + 1, dtype=torch.float32, device="cuda")
+    tok = torch.multinomial(law, batch, replacement=True, generator=gen)
+    out = torch.empty((batch, seq), dtype=torch.int32, device="cuda")
+    for i in range(seq):
+        out[:, i] = tok
+        tok = table[tok]
+    return out
+
+
+def train_config(arch: str, layers: int):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def train_lm(card: str, arch: str, layers: int, batch: int, microbatch: int, seq: int,
+             steps: int, launches: tuple, seed: int) -> dict:
+    """(b)/(c) ``arch`` at its published widths in bf16 (f32 moments, every
+    group rematerialized), ``steps`` AdamW steps on one repeated batch of the
+    bigram stream; the flash launches of each step counted, and the
+    backward's inputs of the first step of each window kept."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime import train
+
+    release()
+    cfg = train_config(arch, layers)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = lm.init_params(cfg, gen, device="cuda", max_pos=seq)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    state = train.init_state(cfg, params)
+    opt = train.OptConfig(**TRAIN_OPT, microbatch=microbatch)
+    step = train.make_train_step(cfg, opt)
+    tokens = {"tokens": bigram_tokens(cfg.vocab_size, batch, seq, seed + 1)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, counts = [], [], []
+    with capture_first(flash_ops, "flash_attention_bwd_cuda", lambda kw: kw["window"]) as calls:
+        for _ in range(steps):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step(state, tokens)
+            losses.append(metrics["loss"].item())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            c = launch_counts()
+            counts.append((c["flash_attention_cuda"], c["flash_attention_bwd_cuda"],
+                           c["flash_attention_cuda_windowed"],
+                           c["flash_attention_bwd_cuda_windowed"]))
+    peak = torch.cuda.max_memory_allocated()
+    what = (f"{cfg.name} ({n_params / 1e9:.3f} B params, {cfg.n_layers} layers"
+            + (f" of {train_config(arch, 0).n_layers}" if layers else "") + f", d={cfg.d_model}, "
+            f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, vocab {cfg.vocab_size})")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"{what}: losses {losses} not all finite, or the last not below the first")
+    if any(c[:2] != launches for c in counts):
+        fail(f"{what}: flash (forward, backward) launches a step {[c[:2] for c in counts]}, "
+             f"not {launches}")
+    if "--profile" in sys.argv[1:]:
+        profile_lm(f"{cfg.name} train step B={batch} x {seq}", lambda: step(state, tokens))
+    steady = sum(secs[1:]) / (len(secs) - 1)
+    say("train", f"{what}: B={batch} x S={seq}" + (f" as {batch // microbatch} microbatches of "
+                 f"{microbatch}" if microbatch else "") + ", bf16 params, f32 moments, remat; "
+                 f"OptConfig(lr={TRAIN_OPT['lr']}, warmup_steps={TRAIN_OPT['warmup_steps']}"
+                 + (f", microbatch={microbatch}" if microbatch else "") + "); "
+                 f"losses {', '.join(f'{x:.4f}' for x in losses)}; seconds a step "
+                 f"{', '.join(f'{x:.3f}' for x in secs)} ({batch * seq / steady:.0f} tokens/s "
+                 f"after the first); peak device memory {peak / 2**30:.2f} GiB; flash launches a "
+                 f"step: forward {counts[0][0]} ({counts[0][2]} windowed), backward {counts[0][1]} "
+                 f"({counts[0][3]} windowed); {card}")
+    del state, params, tokens, step
+    release()
+    return {"calls": calls, "losses": losses, "secs": secs, "peak_bytes": peak,
+            "bwd_launches": sum(c[1] for c in counts),
+            "bwd_launches_windowed": sum(c[3] for c in counts),
+            "tokens_per_s": batch * seq / steady}
+
+
+def resume_check(card: str, arch: str, layers: int, batch: int, seq: int, seed: int) -> None:
+    """(d) One step, a checkpoint, two more steps ("straight"); the
+    checkpoint restored and the same two steps again: every leaf of the
+    two states equal, under deterministic algorithms."""
+    import shutil
+
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.common import sorted_leaves
+    from repro_torch.runtime import train
+    from repro_torch.runtime.checkpoint import Checkpointer
+
+    release()
+    directory = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(directory, ignore_errors=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        cfg = train_config(arch, layers)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        state = train.init_state(cfg, lm.init_params(cfg, gen, device="cuda", max_pos=seq))
+        step = train.make_train_step(cfg, train.OptConfig(**TRAIN_OPT))
+        tokens = {"tokens": bigram_tokens(cfg.vocab_size, batch, seq, seed + 1)}
+        state, _ = step(state, tokens)
+        ck = Checkpointer(directory, keep=1)
+        t0 = time.perf_counter()
+        ck.save(1, state)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(p.stat().st_size for p in directory.rglob("*") if p.is_file())
+        straight = []
+        for _ in range(2):
+            state, m = step(state, tokens)
+            straight.append(m["loss"].item())
+        t0 = time.perf_counter()
+        at, resumed = ck.restore(state)
+        restore_s = time.perf_counter() - t0
+        again = []
+        for _ in range(2):
+            resumed, m = step(resumed, tokens)
+            again.append(m["loss"].item())
+        pairs = list(zip(sorted_leaves(state), sorted_leaves(resumed)))
+        differ = sum(not torch.equal(a, b) for a, b in pairs)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(directory, ignore_errors=True)
+    if at != 1 or differ or straight != again:
+        fail(f"resume: restored step {at}; {differ} of {len(pairs)} leaves differ from the "
+             f"uninterrupted run (losses {straight} vs {again})")
+    say("train", f"resume = uninterrupted, bit for bit: {cfg.name} cut to {cfg.n_layers} layers, "
+                 f"B={batch} x {seq}, under torch.use_deterministic_algorithms: step 1, checkpoint "
+                 f"({nbytes / 1e9:.2f} GB, saved in {save_s:.1f} s, restored in {restore_s:.1f} s), "
+                 f"2 more steps (losses {', '.join(f'{x:.4f}' for x in straight)}) = restore + the "
+                 f"same 2 steps: all {len(pairs)} leaves torch.equal; {card}")
+    del state, resumed, pairs
+    release()
+
+
+def resume_in_child() -> None:
+    """(d) in a child process: deterministic cuBLAS needs
+    ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts, and the rest of the
+    script keeps cuBLAS's default workspace."""
+    release()
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), RESUME_FLAG],
+                           env=env, timeout=900)
+    if child.returncode != 0:
+        fail(f"the resume check's child process exited with {child.returncode}")
+
+
+def phase_train(card: str) -> dict:
+    """Phase 11 (a)-(d): the backward kernel, llama3.2-1b whole, gemma2-27b
+    at full width, resume; returns what (e) times."""
+    worst = flash_bwd_parity(card)
+    llama = train_lm(card, **TRAIN_LLAMA)
+    gemma = train_lm(card, **TRAIN_GEMMA)
+    resume_in_child()
+    errors = {}
+    for tag, run, window in (("llama", llama, 0), ("gemma2", gemma, 0),
+                             ("window_gemma2", gemma, TRAIN_GEMMA["seq"] // 2)):
+        args, kw = run["calls"][window]
+        abs_err, rel, fwd_rel = flash_bwd_group_errors(args, kw, f"on the {tag} step")
+        if not rel <= TOL_FLASH_BWD:
+            fail(f"flash backward on the {tag} step's own inputs {tuple(args[0].shape)} {kw}: "
+                 f"{rel:.3g} of max|plain| > {TOL_FLASH_BWD}")
+        errors[tag] = abs_err
+        say("train", f"flash on the {tag} train step's own inputs q {tuple(args[0].shape)} kv "
+                     f"heads {args[1].shape[2]} {kw}, every (batch, kv-head group): the "
+                     f"forward's o and lse {fwd_rel:.3g} of max|plain| against attention_ref_lse "
+                     f"(pin {TOL_FLASH}); the backward against flash_backward_ref fed the plain o "
+                     f"and lse: max-abs {abs_err:.3g}, {rel:.3g} of max|plain| (pin "
+                     f"{TOL_FLASH_BWD})")
+    return {"worst_sweep": worst, "llama": llama, "gemma": gemma, "errors": errors}
+
+
+def flex_backward_yardstick(q, k, v, do, window: int, softcap: float):
+    """FlexAttention's backward under ``torch.compile``: the same score_mod
+    and block_mask as phase 10's forward yardstick (``flex_mask``).
+    Returns (forward, forward + backward) callables; the forward runs with
+    grad, as the backward needs it."""
+    import torch
+    from torch.nn.attention.flex_attention import flex_attention
+
+    mod, block_mask = flex_mask(q.shape[1], window, softcap)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    fn = torch.compile(flex_attention, dynamic=False)
+
+    def forward():
+        return fn(qt, kt, vt, score_mod=mod, block_mask=block_mask, enable_gqa=True)
+
+    def forward_backward():
+        return torch.autograd.grad(forward(), (qt, kt, vt), dot)
+
+    return forward, forward_backward
+
+
+def train_times(card: str, trained: dict) -> list[dict]:
+    """(e) The backward kernel on the train steps' own inputs: its time
+    beside its bound, the plain version per kv-head group summed, and
+    FlexAttention's backward ((forward + backward) - forward)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_backward_ref
+
+    rows = []
+    llama, gemma = trained["llama"], trained["gemma"]
+    window = TRAIN_GEMMA["seq"] // 2
+    for tag, run, w, launches, label in (
+            ("llama", llama, 0, llama["bwd_launches"], "llama3.2-1b microbatch, causal"),
+            ("gemma2", gemma, 0, gemma["bwd_launches"] - gemma["bwd_launches_windowed"],
+             "gemma2-27b global, causal, softcap 50"),
+            ("window_gemma2", gemma, window, gemma["bwd_launches_windowed"],
+             f"gemma2-27b, causal, window {window}, softcap 50")):
+        (q, k, v, o, lse, do), kw = run["calls"][w]
+        name = f"flash_attention_bwd_{tag}"
+        b, s, h, hd = q.shape
+        kvh = k.shape[2]
+
+        def plain():
+            for bs, hs, ks in kv_groups(q, k):
+                flash_backward_ref(q[bs, :, hs], k[bs, :, ks], v[bs, :, ks], o[bs, :, hs],
+                                   lse[bs, hs], do[bs, :, hs], **kw)
+
+        ms = cuda_time_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw), 3)
+        plain_ms = cuda_time_ms(plain, 1)
+        live = (s * (s + 1) // 2 if w <= 0 else sum(min(i + 1, w) for i in range(s))) * b * h
+        nbytes = (4 * q.numel() + 4 * k.numel() + lse.numel()) * 4  # q o dO dq, k v dk dv, lse
+        b_ms, b_by, fma_ms = bound_ms(nbytes, 10 * hd * live, F32_PRODUCT_S_PER_FLOP)
+        design_ms = bound_ms(nbytes, 14 * hd * live, F32_PRODUCT_S_PER_FLOP)[0]
+        library = None
+        t0 = time.perf_counter()
+        try:  # a yardstick only: its failure is reported, never timed
+            fwd, fwd_bwd = flex_backward_yardstick(q, k, v, do, w, kw["softcap"])
+            fwd_bwd()
+            torch.cuda.synchronize()
+            library = cuda_time_ms(fwd_bwd, 3) - cuda_time_ms(fwd, 3)
+            say("train", f"{name}: FlexAttention backward compiled and run in "
+                         f"{time.perf_counter() - t0:.1f} s")
+            del fwd, fwd_bwd
+        except Exception as e:  # noqa: BLE001
+            say("train", f"{name}: FlexAttention backward yardstick FAILED ({type(e).__name__}: "
+                         f"{str(e)[:300]}); library_ms null")
+        torch.cuda.empty_cache()
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                     "replaces": "src/repro/kernels/flash_attention/ops.py:254",
+                     "launches": launches, "max_abs_err": trained["errors"][tag],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": library, "bound_f32_fma_ms": fma_ms,
+                     "bound_design_14hd_ms": design_ms})
+        lib = "null" if library is None else f"{library:.4f} ms"
+        say("times", f"{name} ({b}, {s}, {h}, {kvh}, {hd}, {label}): {ms:.4f} ms, bound "
+                     f"{b_ms:.4f} ms ({b_by}: 10 hd FLOPs a live pair at 3 TF32 passes; "
+                     f"{b_ms / ms:.1%} of it; this design's 14 hd {design_ms:.4f} ms; f32 FMA "
+                     f"bound {fma_ms:.4f} ms), plain {plain_ms:.4f} ms (per kv-head group, "
+                     f"summed), FlexAttention backward {lib}; launches {launches}; {card}")
+    return rows
 
 
 def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
@@ -1694,6 +2138,9 @@ def main() -> None:
     from repro_torch.core.execution import resolve_device
 
     resolve_device("cuda")  # full-f32 matmuls: the plain versions are f32 references
+    if RESUME_FLAG in sys.argv[1:]:  # phase 11(d), in the child resume_in_child starts
+        resume_check(card, **RESUME)
+        return
     phase_build()
     errors = phase_parity()
     errors["ssd_chunked"] = phase_parity_ssd()
@@ -1704,6 +2151,7 @@ def main() -> None:
     phase_reference()
     served_lm = phase_lm(card)
     phase_replicas(card)
+    trained = phase_train(card)
     gemma, zamba = served_lm["gemma2-27b"], served_lm["zamba2-2.7b"]
     errors.update({"flash_attention_fwd_gemma2": gemma["errors"]["global"],
                    "flash_attention_fwd_window_gemma2": gemma["errors"]["window"],
@@ -1722,6 +2170,7 @@ def main() -> None:
         "flash_attention_fwd_hd80_zamba2": zamba["launches"][0],
     }
     rows = phase_times(card, launches, errors)
+    rows += train_times(card, trained)
     for r in rows:  # the SSD scan's shape is zamba2-2.7b's: its launches a prefill too
         if r["name"] == "ssd_chunked":
             r["launches_zamba2_prefill"] = zamba["launches"][2]
@@ -1734,6 +2183,11 @@ def main() -> None:
     for arch, r in served_lm.items():
         say("lm", f"{arch}: prefill {r['prefill_s']:.3f} s, decode {r['decode_ms']:.2f} ms a step, "
                   f"peak {r['peak_bytes'] / 2**30:.2f} GiB")
+    for what, r in (("llama3.2-1b", trained["llama"]), ("gemma2-27b (2 layers)", trained["gemma"])):
+        say("train", f"{what}: {r['tokens_per_s']:.0f} tokens/s, seconds a step "
+                     + ", ".join(f"{x:.3f}" for x in r["secs"]) + ", losses "
+                     + ", ".join(f"{x:.4f}" for x in r["losses"])
+                     + f", peak {r['peak_bytes'] / 2**30:.2f} GiB; {card}")
     if not all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows):
         fail("a kernel time is not a positive number")
     import torch

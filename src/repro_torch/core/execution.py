@@ -15,6 +15,9 @@ tolerances the port is held to (1e-5 on the fused dequant-matmul, 2e-5 on
 flash attention) are f32 tolerances that TF32's ~1e-3 would break.  And it
 makes bf16 matrix products sum in f32 (no reduced-precision reductions), as
 the JAX package's bf16 products do (``preferred_element_type=f32``).
+
+``require_no_grad`` guards the CUDA path of an op whose kernel has no
+backward: a gradient wanted through it raises instead of being dropped.
 """
 
 from __future__ import annotations
@@ -49,3 +52,20 @@ def on_kernel_path(*tensors: torch.Tensor) -> bool:
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"tensors must all lie on cpu or all on cuda, got {sorted(kinds)}")
+
+
+def require_no_grad(op: str, *tensors: torch.Tensor) -> None:
+    """Raise on the CUDA path of an op that has no backward kernel yet, when
+    autograd would want a gradient through it.
+
+    A kernel wrapper writes into a fresh tensor that has no ``grad_fn``, so
+    ``loss.backward()`` would silently drop the gradient of everything
+    upstream.  The CPU path keeps autograd through the plain version."""
+    if not torch.is_grad_enabled():
+        return
+    if any(t.requires_grad for t in tensors if t.is_floating_point()):
+        raise NotImplementedError(
+            f"{op}: the CUDA kernel has no backward yet (ROADMAP.md queue 1; the SSD "
+            f"scan's is item 5a); call it under "
+            f"torch.no_grad(), or on CPU tensors, where autograd runs through the "
+            f"plain version")

@@ -40,6 +40,13 @@
 // views (the fused q|k|v projection's slices): rows are read at the batch
 // and sequence strides given, and each row's (heads, hd) block must be
 // packed and 16-byte aligned.
+//
+// For training the kernel also writes each row's logsumexp, lse = m +
+// log(max(l, 1e-30)) over the capped, scaled logits (natural log: the
+// softmax runs in exp), into a (B, H, S) f32 tensor when lse is non-null --
+// the residual the backward (flash_attention_bwd.cu) recomputes the
+// probabilities from, as the JAX package's custom VJP keeps it.  Serving
+// passes null.
 
 #include <cuda_runtime.h>
 
@@ -127,7 +134,8 @@ __device__ __forceinline__ void qk_slice(float (&sacc)[MT][NKT][4], const float*
 template <int HD>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int S,
                  int H, int G, long long q_sb, long long q_ss, long long k_sb,
                  long long k_ss, long long v_sb, long long v_ss, int causal,
                  int window, float softcap, float scale) {
@@ -305,6 +313,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int qp = q_lo + r0 + 16 * mt + 8 * i;
       if (qp >= S) continue;
       const float inv = 1.0f / fmaxf(l[mt][i], 1e-30f);
+      if (lse != nullptr && t == 0)
+        lse[((long long)b * H + h) * S + qp] = m[mt][i] + logf(fmaxf(l[mt][i], 1e-30f));
       float* orow = o + (((long long)b * S + qp) * H + h) * HD + 2 * t;
 #pragma unroll
       for (int dt = 0; dt < NDT; ++dt)
@@ -314,7 +324,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HD>
-int launch(const float* q, const float* k, const float* v, float* o, int B,
+int launch(const float* q, const float* k, const float* v, float* o, float* lse, int B,
            int S, int H, int KH, long long q_sb, long long q_ss, long long k_sb,
            long long k_ss, long long v_sb, long long v_ss, int causal,
            int window, float softcap, float scale, cudaStream_t st) {
@@ -323,7 +333,7 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
       flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(B * H), (unsigned)((S + Tile<HD>::BQ - 1) / Tile<HD>::BQ));
-  flash_fwd_kernel<HD><<<grid, NT, smem, st>>>(q, k, v, o, S, H, H / KH, q_sb,
+  flash_fwd_kernel<HD><<<grid, NT, smem, st>>>(q, k, v, o, lse, S, H, H / KH, q_sb,
                                                q_ss, k_sb, k_ss, v_sb, v_ss,
                                                causal, window, softcap, scale);
   return (int)cudaGetLastError();
@@ -332,17 +342,17 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
 }  // namespace
 
 extern "C" int seifer_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B, int S, int H,
     int KH, int hd, long long q_sb, long long q_ss, long long k_sb,
     long long k_ss, long long v_sb, long long v_ss, int causal, int window,
     float softcap, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v;
-  float* of = (float*)o;
+  float *of = (float*)o, *lf = (float*)lse;
   switch (hd) {
 #define SEIFER_FLASH_CASE(D)                                                     \
   case D:                                                                        \
-    return launch<D>(qf, kf, vf, of, B, S, H, KH, q_sb, q_ss, k_sb, k_ss, v_sb, \
+    return launch<D>(qf, kf, vf, of, lf, B, S, H, KH, q_sb, q_ss, k_sb, k_ss, v_sb, \
                      v_ss, causal, window, softcap, scale, st);
     SEIFER_FLASH_CASE(64)
     SEIFER_FLASH_CASE(80)

@@ -134,8 +134,39 @@ def tree_index(tree: Any, i: int) -> Any:
 
 
 def tree_leaves(tree: Any) -> list:
+    """Leaves in the tree's own (insertion) order."""
     out: list = []
     tree_map(out.append, tree)
+    return out
+
+
+def sorted_leaves(tree: Any) -> list:
+    """Leaves in ``jax.tree.leaves``' order: dict keys sorted, tuples and
+    lists in order.  Sums over leaves and checkpoint files follow it, so
+    they match the JAX package's."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in sorted_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for v in tree for leaf in sorted_leaves(v)]
+    return [tree]
+
+
+def sorted_unflatten(like: Any, leaves: list) -> Any:
+    """A tree shaped as ``like`` whose leaves, in ``sorted_leaves`` order,
+    are ``leaves`` (``jax.tree.unflatten``)."""
+    it = iter(leaves)
+
+    def build(t: Any) -> Any:
+        if isinstance(t, dict):
+            vals = {k: build(t[k]) for k in sorted(t)}
+            return {k: vals[k] for k in t}
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
     return out
 
 

@@ -12,8 +12,11 @@ functional model covering:
 
 Group params stay stacked on a leading axis, as the JAX package lays them
 out for ``lax.scan``; the scan is a loop over the group index here, each
-group a view of the stacked tensors.  Training (``chunked_xent``,
-``loss_fn``, rematerialization) comes with the training slice.
+group a view of the stacked tensors.  Training: ``loss_fn`` (next-token
+cross entropy through ``chunked_xent``, which never keeps more than one
+chunk's (B, 512, V) f32 logits alive, plus the MoE aux loss), with every
+layer group rematerialized (``torch.utils.checkpoint``) as the JAX package's
+``jax.checkpoint`` does.
 
 Decode steps carry an explicit cache tree (KV ring buffers for sliding-
 window layers, recurrent states for ssm/hybrid) and are O(1) in sequence
@@ -28,6 +31,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.execution import resolve_device
 from repro_torch.models import moe as moe_lib
@@ -58,6 +62,7 @@ from repro_torch.models.layers import (
 
 PATCH_TOKENS = 256  # vlm: patch embeddings occupy the first positions
 PATCH_DIM = 1024  # vlm: precomputed patch-embedding width
+XENT_CHUNK = 512  # tokens per chunk in the chunked cross-entropy
 
 
 # ---------------------------------------------------------------------------
@@ -248,48 +253,70 @@ def _positions(s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None, :]
 
 
-def forward_hidden(cfg, params, batch, *, policy=NO_SHARDING):
-    """Full-sequence forward to final hidden states.  Returns (h, aux)."""
+def _maybe_remat(fn, remat: bool):
+    """``fn`` recomputed in the backward pass when ``remat`` (the JAX
+    package's ``jax.checkpoint``): only its inputs are kept."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def forward_hidden(cfg, params, batch, *, policy=NO_SHARDING, remat: bool = False):
+    """Full-sequence forward to final hidden states.  Returns (h, aux).
+
+    ``remat`` recomputes each layer group (for hybrid archs, with its
+    shared-block application) in the backward pass."""
     if cfg.family == "audio":
-        return _audio_forward(cfg, params, batch, policy=policy)
+        return _audio_forward(cfg, params, batch, policy=policy, remat=remat)
     x = embed_inputs(cfg, params, batch)
     positions = _positions(x.shape[1], x.device)
     shared = params.get("shared_attn")
+
+    def group_fn(x, gp):
+        x, aux = _group_forward(cfg, gp, x, positions, policy)
+        if shared is not None:
+            x, aux2 = _transformer_block(cfg, shared, x, _attn_spec(cfg, local=False), positions,
+                                         policy)
+            aux = aux + aux2
+        return x, aux
+
+    group_fn = _maybe_remat(group_fn, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_groups, _ = group_layout(cfg)
     for gi in range(n_groups):
-        x, a = _group_forward(cfg, tree_index(params["blocks"], gi), x, positions, policy)
+        x, a = group_fn(x, tree_index(params["blocks"], gi))
         aux = aux + a
-        if shared is not None:
-            x, a = _transformer_block(cfg, shared, x, _attn_spec(cfg, local=False), positions,
-                                      policy)
-            aux = aux + a
     x = apply_norm(cfg, x, params["final_norm"])
     return policy.act(x, "final_hidden"), aux
 
 
-def encode(cfg, params, frames: torch.Tensor, *, policy=NO_SHARDING) -> torch.Tensor:
+def encode(cfg, params, frames: torch.Tensor, *, policy=NO_SHARDING,
+           remat: bool = False) -> torch.Tensor:
     """Whisper encoder: frames (B, S, d) -> (B, S, d)."""
     enc = params["encoder"]
     s = frames.shape[1]
     x = frames + enc["pos"][:s][None]
     spec = AttnSpec(causal=False)
     positions = _positions(s, x.device)
+    block_fn = _maybe_remat(
+        lambda bp, x: _transformer_block(cfg, bp, x, spec, positions, policy)[0], remat)
     for i in range(cfg.encoder_layers):
-        x = _transformer_block(cfg, tree_index(enc["blocks"], i), x, spec, positions, policy)[0]
+        x = block_fn(tree_index(enc["blocks"], i), x)
     return apply_norm(cfg, x, enc["final_norm"])
 
 
-def _audio_forward(cfg, params, batch, *, policy=NO_SHARDING):
-    enc_out = encode(cfg, params, batch["frames"], policy=policy)
+def _audio_forward(cfg, params, batch, *, policy=NO_SHARDING, remat: bool = False):
+    enc_out = encode(cfg, params, batch["frames"], policy=policy, remat=remat)
     tokens = batch["tokens"]
     s = tokens.shape[1]
     x = params["embed"][tokens] + params["dec_pos"][:s][None]
     positions = _positions(s, x.device)
+    block_fn = _maybe_remat(
+        lambda bp, x, enc_out: _group_forward(cfg, bp, x, positions, policy,
+                                              enc_out=enc_out)[0], remat)
     n_groups, _ = group_layout(cfg)
     for gi in range(n_groups):
-        x = _group_forward(cfg, tree_index(params["blocks"], gi), x, positions, policy,
-                           enc_out=enc_out)[0]
+        x = block_fn(tree_index(params["blocks"], gi), x, enc_out)
     x = apply_norm(cfg, x, params["final_norm"])
     return policy.act(x, "final_hidden"), torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -301,10 +328,63 @@ def lm_head_matrix(cfg, params) -> torch.Tensor:
 def final_logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
     """Vocabulary logits of hidden states x (..., d): the product in x's
     dtype (as the JAX package's einsum), then f32 and the final softcap."""
-    logits = (x @ lm_head_matrix(cfg, params)).float()
+    return _softcapped_logits(cfg, x, lm_head_matrix(cfg, params))
+
+
+def _softcapped_logits(cfg, x: torch.Tensor, w: torch.Tensor, policy=NO_SHARDING) -> torch.Tensor:
+    logits = policy.act((x @ w).float(), "logits")
     if cfg.final_softcap > 0:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy (never keeps more than one chunk's (B, c, V) logits)
+# ---------------------------------------------------------------------------
+
+
+def chunked_xent(cfg, params, hidden: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                 *, chunk: int = XENT_CHUNK, policy=NO_SHARDING) -> torch.Tensor:
+    """Mean next-token cross entropy.  hidden (B,S,d); labels/mask (B,S).
+
+    The JAX package's scan over chunks of ``chunk`` tokens (the whole
+    sequence when ``chunk`` does not divide it), summed in the same order.
+    Each chunk is rematerialized, so its f32 logits live only while the
+    chunk runs, in the forward and again in the backward pass."""
+    w = lm_head_matrix(cfg, params)  # (d, V)
+    b, s, _ = hidden.shape
+    c = min(chunk, s)
+    if s % c:
+        c = s
+
+    def chunk_nll(h, w, y, m):
+        logits = _softcapped_logits(cfg, h, w, policy)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y[..., None])[..., 0]
+        return ((lse - gold) * m).sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, s, c):
+        m = mask[:, lo:lo + c]
+        tot = tot + checkpoint(chunk_nll, hidden[:, lo:lo + c], w, labels[:, lo:lo + c], m,
+                               use_reentrant=False, preserve_rng_state=False)
+        cnt = cnt + m.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(cfg, params, batch, *, policy=NO_SHARDING, aux_weight: float = 0.01):
+    """Next-token LM loss over the batch (every layer group rematerialized);
+    adds the MoE aux loss.  Returns (loss, {"xent", "aux"})."""
+    hidden, aux = forward_hidden(cfg, params, batch, policy=policy, remat=True)
+    tokens = batch["tokens"]
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).long()
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    if cfg.family == "vlm" and "patches" in batch:
+        mask[:, : batch["patches"].shape[1] - 1] = 0.0
+    loss = chunked_xent(cfg, params, hidden, labels, mask, policy=policy)
+    return loss + aux_weight * aux, {"xent": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

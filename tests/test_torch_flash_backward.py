@@ -1,0 +1,102 @@
+"""The port's differentiable flash attention against the JAX package's
+custom VJP, and its plain backward against autograd, on the CPU.
+
+``FlashAttention`` (the autograd Function the port's ``flash_attention``
+applies when a gradient is wanted) runs its plain versions here:
+``attention_ref_lse`` forward, ``flash_backward_ref`` backward.  It is held
+to ``jax.grad`` of the JAX package's ``flash_attention`` on
+``tests/test_kernels.py``'s ``SWEEP[:5]`` -- sizes where the JAX op takes
+its blockwise path and custom VJP (``_backward``), not its naive fallback --
+and ``flash_backward_ref``, written out from ``_bwd_block``'s formula, is
+held to autograd through the port's own ``attention_ref``.  Same seeded
+numpy inputs through both, f32.  Pin: 1e-4 of max|ref| per gradient, the
+JAX package's own gradient tolerance (``tests/test_kernels.py``).
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_kernels import SWEEP
+
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref,
+    attention_ref_lse,
+    flash_backward_ref,
+)
+
+TOL = 1e-4
+
+
+def _inputs(b, sq, skv, h, kh, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, hd), dtype=np.float32),
+            rng.standard_normal((b, skv, kh, hd), dtype=np.float32),
+            rng.standard_normal((b, skv, kh, hd), dtype=np.float32))
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-6))
+
+
+@pytest.mark.parametrize("case", SWEEP[:5])
+def test_grads_match_jax_custom_vjp(case, monkeypatch):
+    b, sq, skv, h, kh, hd, causal, window, softcap, block, _ = case
+    q, k, v = _inputs(b, sq, skv, h, kh, hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    want = jax.grad(lambda *a: (jax_flash_attention(*a, block=block, **kw) ** 2).sum(),
+                    argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+
+    calls = []
+    backward = flash_ops.FlashAttention.backward
+    monkeypatch.setattr(flash_ops.FlashAttention, "backward",
+                        staticmethod(lambda ctx, do: calls.append(1) or backward(ctx, do)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    (flash_attention(*ts, **kw) ** 2).sum().backward()
+    assert calls == [1]  # the Function's own backward ran
+    for name, t, w in zip("qkv", ts, want):
+        err = _rel(t.grad.numpy(), w)
+        assert err <= TOL, f"d{name}: {err:.3g} of max|ref| > {TOL}"
+
+
+@pytest.mark.parametrize("b,s,h,kh,hd,causal,window,softcap", [
+    (2, 48, 4, 2, 16, True, 0, 0.0),
+    (1, 61, 6, 2, 32, True, 13, 50.0),
+    (2, 40, 2, 2, 16, False, 0, 0.0),
+    (1, 40, 4, 1, 16, False, 9, 5.0),
+])
+def test_backward_ref_matches_autograd(b, s, h, kh, hd, causal, window, softcap):
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _inputs(b, s, s, h, kh, hd, 1))
+    do = torch.from_numpy(np.random.default_rng(2).standard_normal((b, s, h, hd),
+                                                                   dtype=np.float32))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    attention_ref(q, k, v, **kw).backward(do)
+    o, lse = attention_ref_lse(q.detach(), k.detach(), v.detach(), **kw)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    assert torch.allclose(o, attention_ref(q, k, v, **kw), atol=1e-6)
+    got = flash_backward_ref(q.detach(), k.detach(), v.detach(), o, lse, do, **kw)
+    for name, g, t in zip("qkv", got, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == torch.float32
+        err = _rel(g.numpy(), t.grad.numpy())
+        assert err <= TOL, f"d{name}: {err:.3g} of max|autograd| > {TOL}"
+
+
+def test_no_grad_serving_path_keeps_attention_ref():
+    """Without a gradient the op is the plain forward, bit for bit; bf16
+    inputs come back in bf16 with bf16 gradients."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 32, 32, 4, 2, 16, 3))
+    with torch.no_grad():
+        assert torch.equal(flash_attention(q, k, v, window=5),
+                           attention_ref(q, k, v, window=5))
+    qb, kb, vb = (t.bfloat16().requires_grad_() for t in (q, k, v))
+    o = flash_attention(qb, kb, vb, softcap=50.0)
+    assert o.dtype == torch.bfloat16 and o.grad_fn is not None
+    o.float().sum().backward()
+    assert all(t.grad.dtype == torch.bfloat16 for t in (qb, kb, vb))

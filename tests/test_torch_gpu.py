@@ -565,3 +565,178 @@ def test_small_lm_card_matches_cpu(cuda, name, dtype):
     for got, want in zip(gc, cc):
         if isinstance(want, torch.Tensor) and want.abs().max() > 0:
             assert _rel(got, want) <= tol["decode"]
+
+
+# ---------------------------------------------------------------------------
+# training: the flash backward kernel, ops without a backward, a train step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hd", ZOO_HEAD_DIMS)
+@pytest.mark.parametrize("s,g,causal,window,softcap", [
+    (1000, 2, True, 0, 50.0),    # causal, soft-capped GQA, ragged S
+    (300, 1, True, 100, 0.0),    # a window across kv tiles
+    (129, 4, False, 0, 0.0),     # non-causal, G = 4
+    (65, 2, False, 17, 50.0),    # non-causal window below a tile
+])
+def test_flash_backward_matches_plain(cuda, hd, s, g, causal, window, softcap):
+    """dq, dk, dv of the backward kernel against ``flash_backward_ref`` on
+    the same residuals, each within 2e-5 of max|plain| (the JAX package's
+    gradient tolerance is 1e-4; the kernel measured 4.7e-6 at worst at
+    S=2048), and deterministic: a second run is equal."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_backward_ref
+
+    q, k, v = _flash_case(cuda, 2, s, 2 * g, 2, hd, 40)
+    do = _randn(q.shape, 44, cuda)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    want = flash_backward_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert ((a - w).abs().max() / w.abs().max()).item() <= 2e-5
+
+
+@pytest.mark.parametrize("hd", ZOO_HEAD_DIMS)
+@pytest.mark.parametrize("s,g,causal,window,softcap,scale", [
+    (1000, 2, True, 0, 50.0, 1.0),    # causal, soft-capped GQA, ragged S
+    (1000, 2, True, 0, 50.0, 4.0),    # logits up to ~20: the cap bends them
+    (300, 1, True, 100, 0.0, 1.0),    # a window across kv tiles
+    (129, 4, False, 0, 0.0, 1.0),     # non-causal, G = 4
+    (65, 2, False, 17, 50.0, 1.0),    # non-causal window below a tile
+])
+def test_flash_lse_and_gradient_match_independent_plain(cuda, hd, s, g, causal, window, softcap,
+                                                        scale):
+    """The forward's o and logsumexp (``lse=True``) against
+    ``attention_ref_lse``, each within 2e-5 of max|plain|; then the backward
+    kernel on the kernel's residuals against ``flash_backward_ref`` fed the
+    plain o and lse, within 2e-5 of max|plain|: the whole gradient held to
+    a reference that shares nothing with the kernels."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref_lse, flash_backward_ref
+
+    q, k, v = _flash_case(cuda, 2, s, 2 * g, 2, hd, 60)
+    q = q * scale
+    do = _randn(q.shape, 64, cuda)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
+    o_ref, lse_ref = attention_ref_lse(q, k, v, **kw)
+    for a, w in ((o, o_ref), (lse, lse_ref)):
+        assert ((a - w).abs().max() / w.abs().max()).item() <= 2e-5
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    want = flash_backward_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    for a, w in zip(got, want):
+        assert ((a - w).abs().max() / w.abs().max()).item() <= 2e-5
+
+
+def test_flash_backward_takes_strided_projection_slices(cuda):
+    """q, k, v as slices of one fused projection, as the layers make them:
+    the same gradients as from contiguous copies."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+
+    b, s, h, kh, hd = 2, 333, 4, 2, 64
+    qkv = _randn((b, s, (h + 2 * kh) * hd), 50, cuda)
+    q = qkv[..., : h * hd].view(b, s, h, hd)
+    k = qkv[..., h * hd: (h + kh) * hd].view(b, s, kh, hd)
+    v = qkv[..., (h + kh) * hd:].view(b, s, kh, hd)
+    do = _randn((b, s, h, hd), 51, cuda)
+    o, lse = flash_attention_cuda(q, k, v, lse=True, window=70, softcap=50.0)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, window=70, softcap=50.0)
+    want = flash_attention_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), o, lse, do,
+                                    window=70, softcap=50.0)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+def test_flash_op_gradient_through_the_kernels(cuda):
+    """The op's autograd Function on the card: launches the forward (with
+    lse) and the backward kernel once each, and gives the plain gradients."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = (t.requires_grad_() for t in _flash_case(cuda, 1, 512, 4, 2, 128, 52))
+    reset_launch_counts()
+    (flash_attention(q, k, v, window=100) ** 2).sum().backward()
+    counts = launch_counts()
+    assert counts["flash_attention_cuda"] == 1 and counts["flash_attention_bwd_cuda"] == 1
+    grads = [t.grad for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    (attention_ref(q, k, v, window=100) ** 2).sum().backward()
+    for a, t in zip(grads, (q, k, v)):
+        assert ((a - t.grad).abs().max() / t.grad.abs().max()).item() <= 1e-4
+
+
+def test_ops_without_a_backward_raise_on_grad(cuda):
+    """On CUDA, an op whose kernel has no backward raises where autograd
+    would want a gradient through it, and runs under no_grad."""
+    from repro_torch.kernels.quantize.ops import dequant_matmul, dequantize_int8, quantize_int8
+    from repro_torch.kernels.ssm_scan.ops import ssd_chunked
+
+    x = _randn((4, 512), 60, cuda)
+    q, s = quantize_int8(x, 256)
+    w = _randn((512, 64), 61, cuda)
+    xs, bm, cm, dt, a = _ssd_case(cuda, 1, 128, 2, 16, 16, 62)
+    calls = [
+        lambda grad: quantize_int8(x.clone().requires_grad_(grad), 256),
+        lambda grad: dequantize_int8(q, s.clone().requires_grad_(grad), torch.float32, block=256),
+        lambda grad: dequant_matmul(q, s, w.clone().requires_grad_(grad), torch.float32,
+                                    block=256),
+        lambda grad: ssd_chunked(xs.clone().requires_grad_(grad), bm, cm, dt, a, chunk=64),
+    ]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call(True)
+        with torch.no_grad():
+            call(True)
+        call(False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_small_train_step_card_matches_cpu(cuda, dtype):
+    """One AdamW step of a small llama3.2-1b (d = 256: hd 64; S = 2048, so
+    the flash forward and backward kernels run; 2 microbatches of 1) on the
+    card and on the CPU from the same weights and tokens: the loss, the
+    gradient norm and every accumulated gradient leaf within 1e-4 (f32) or
+    3e-2 (bf16) of max|cpu|.  The updated params differ by at most 2 lr
+    more: AdamW's first step moves each param by lr times the sign of its
+    gradient, which flips between the two for gradients near 0."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.runtime import train
+
+    cfg = reduced(ARCHS["llama3.2-1b"], d_model=256, vocab=512)
+    base = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu", max_pos=64)
+    base = tree_map(lambda t: t.to(dtype), base)
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 2048), dtype=np.int32)
+    opt = train.OptConfig(lr=1e-3, warmup_steps=1, microbatch=1)
+    runs = {}
+    for dev in ("cpu", cuda):
+        # a copy on each device: the step updates its state in place, and
+        # .to("cpu") of a CPU tensor would hand it base itself
+        params = tree_map(lambda t: t.to(dev, copy=True), base)
+        batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+        grads, _ = train._accumulated_grads(lambda p, b: lm.loss_fn(cfg, p, b), params, batch, 1)
+        reset_launch_counts()
+        state, metrics = train.make_train_step(cfg, opt)(train.init_state(cfg, params), batch)
+        runs[str(dev)] = (metrics, tree_leaves(grads), tree_leaves(state["params"]))
+        if dev != "cpu":
+            counts = launch_counts()
+            # 2 layers x 2 microbatches, the forward twice (remat)
+            assert counts["flash_attention_cuda"] == 8
+            assert counts["flash_attention_bwd_cuda"] == 4
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    (cm, cg, cp), (gm, gg, gp) = runs["cpu"], runs[str(cuda)]
+    for key in ("loss", "grad_norm"):
+        assert abs(gm[key].item() - cm[key].item()) <= tol * abs(cm[key].item()), key
+    for got, want in zip(gg, cg):
+        assert got.is_cuda and _rel(got, want) <= tol
+    for got, want in zip(gp, cp):
+        assert got.is_cuda and got.dtype == dtype
+        diff = (got.float().cpu() - want.float()).abs().max().item()
+        assert diff <= 2 * opt.lr + tol * want.float().abs().max().item()
