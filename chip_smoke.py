@@ -92,7 +92,7 @@ the first fault:
    the cheapest tensor-core route of an f32-accurate product: 3 TF32 passes
    (495 TFLOP/s) under split-TF32, or 2 bf16 passes (989 TFLOP/s) where one
    operand is an exact int8 code and the other two bf16 pieces; the f32 FMA bound
-   stays beside it as ``bound_f32_fma_ms``.  dequantize is timed at
+   is printed beside it (the JSON rows hold only ``bound_ms`` and what was measured).  dequantize is timed at
    demo_ssm's hop, and its scalar path (the kernel before the vector path,
    on the same codes at an odd byte offset) against its vector path there,
    interleaved turns of 20 launches, in f32 and bf16; the SSD scan's bound
@@ -128,11 +128,31 @@ the first fault:
    then restore and the same two steps: every leaf ``torch.equal``.  It
    runs in a child process (``chip_smoke.py --resume-check``) started with
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, which deterministic cuBLAS needs,
-   so every other phase keeps cuBLAS's default workspace.  (e) After phase 10: the backward kernel timed on (b)'s
-   and (c)'s own inputs beside its bound (10 hd FLOPs a live pair at 3
-   TF32 passes; this design's 14 hd beside it), its plain version per
-   kv-head group summed, and FlexAttention's backward under
-   ``torch.compile`` ((forward + backward) - forward).
+   so every other phase keeps cuBLAS's default workspace.  (f) The SSD
+   scan's backward kernel (``csrc/ssd_scan_bwd.cu``) against
+   ``ssd_backward_ref`` chunked as the kernel chunks (64, padded) over a
+   sweep (ragged S, dh and N below 64, dt / 100, strong decay, zamba2's
+   training microbatch): dxs, dbm, dcm, ddt and da each within 5e-6 of
+   max|plain| in f32, two runs equal; the kernel's and the f32 plain
+   version's errors against an f64 plain run printed beside.  (g)
+   zamba2-2.7b whole (54 Mamba2 layers, d=2560, 80 heads of 64, N=64; the
+   shared block, 32/32 heads of 80, every 6 layers; 2.34 B params), bf16
+   params and f32 moments, train_4k's S=4096 with its global batch of 256
+   cut to 8, as 2 microbatches of 4; 3 AdamW steps as in (b): every loss
+   finite and the last below the first; flash forward 36 and backward 18
+   launches a step, the SSD scan forward 216 and backward 108.  One SSD
+   backward launch on the first step's own inputs is held to the plain
+   version as in (f), and one flash backward at hd 80 as in (b).  Before
+   the resume check.  (e) After phase 10: the flash backward kernel timed
+   on (b)'s, (c)'s and (g)'s own inputs beside its bound (10 hd FLOPs a
+   live pair at 3 TF32 passes; this design's 14 hd beside it), its plain
+   version per kv-head group summed, and FlexAttention's backward under
+   ``torch.compile`` ((forward + backward) - forward); the SSD backward
+   (``ssd_chunked_bwd``) on (g)'s own inputs beside its bound (xs, dy, dxs
+   and the small tensors once; the fewest product FLOPs of any chunking at
+   3 TF32 passes), the bytes and FLOPs of its own design, and its plain
+   version (no PyTorch call computes it: library none).  ``--profile``
+   adds one more step of each model under ``torch.profiler``.
 
 The last three lines are a JSON object of the kernels, the card's name and
 power limit, and the device line.
@@ -1499,17 +1519,38 @@ TRAIN_OPT = dict(lr=1e-3, warmup_steps=1)
 # its global batch of 256 cut to 16 as 2 microbatches of 8.  Launches a
 # step: flash forward 16 layers x 2 (remat) x 2 microbatches, backward 32
 TRAIN_LLAMA = dict(arch="llama3.2-1b", layers=0, batch=16, microbatch=8, seq=4096, steps=4,
-                   launches=(64, 32), seed=71)
+                   launches=(64, 32, 0, 0), seed=71)
 # gemma2-27b at full width (archs.py:109-128), depth cut to one local +
 # global group (2 of 46 layers); B=1 x S=8192, where its 4096 window masks
 TRAIN_GEMMA = dict(arch="gemma2-27b", layers=2, batch=1, microbatch=0, seq=8192, steps=2,
-                   launches=(4, 2), seed=73)
+                   launches=(4, 2, 0, 0), seed=73)
+# zamba2-2.7b whole (archs.py:165-179: 54 Mamba2 layers, d=2560, 80 heads of
+# 64, N=64; the shared block every 6 layers, 32/32 heads of 80); train_4k's
+# S=4096, its global batch of 256 cut to 8 as 2 microbatches of 4.  Launches
+# a step: flash forward 9 x 2 (remat) x 2 microbatches, backward 18; the SSD
+# scan forward 54 x 2 x 2, backward 108
+TRAIN_ZAMBA = dict(arch="zamba2-2.7b", layers=0, batch=8, microbatch=4, seq=4096, steps=3,
+                   launches=(36, 18, 216, 108), seed=77)
 # resume equals uninterrupted: llama3.2-1b at full width cut to 2 of 16
 # layers (a checkpoint of 3.6 GB), B=4 x 4096
 RESUME = dict(arch="llama3.2-1b", layers=2, batch=4, seq=4096, seed=75)
 # of max|plain| per gradient: the JAX package's gradient tolerance is 1e-4;
 # the kernel measured 4.7e-6 at worst over the sweep, so the pin is 2e-5
 TOL_FLASH_BWD = 2e-5
+# of max|plain| per gradient of the SSD backward: the JAX package's gradient
+# tolerance is 1e-4; the kernel measured 6.8e-7 at worst over the sweep and
+# the zamba2 step's own inputs, so the pin is 5e-6
+TOL_SSD_BWD = 5e-6
+SSD_GRADS = ("dxs", "dbm", "dcm", "ddt", "da")
+# (b, s, h, dh, n, dt scale): the SSD backward's sweep (f)
+SSD_BWD_CASES = [
+    (2, 256, 4, 64, 32, 1.0), (2, 256, 4, 64, 32, 0.01), (1, 512, 8, 64, 64, 1.0),
+    (1, 512, 8, 64, 64, 0.01),
+    (1, 40, 3, 64, 64, 1.0),       # one ragged chunk
+    (1, 1000, 2, 22, 37, 0.01),    # ragged, dh and N below 64 and not multiples of 4
+    (1, 512, 2, 64, 16, 200.0),    # strong decay: exp above the diagonal overflows unmasked
+    (4, 4096, 80, 64, 64, 1.0),    # zamba2-2.7b's Mamba2 layer at its training microbatch
+]
 
 
 def flash_bwd_cases() -> list[tuple]:
@@ -1620,6 +1661,68 @@ def flash_bwd_parity(card: str) -> float:
     return worst
 
 
+def ssd_bwd_errors(args, chunk: int, what: str) -> dict:
+    """The SSD backward kernel on ``args`` (xs, bm, cm, dt, a, dy) against
+    ``ssd_backward_ref`` chunked as the kernel chunks (at KERNEL_CHUNK,
+    padded) in f32: fails unless each gradient is within TOL_SSD_BWD of
+    max|plain| and two runs are equal.  The kernel and the f32 plain
+    version are also held to the f64 plain version (the exact yardstick; da
+    per head too), for the record.  Returns the errors."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan.kernel import KERNEL_CHUNK, ssd_chunked_bwd_cuda
+    from repro_torch.kernels.ssm_scan.ref import ssd_backward_ref_padded
+
+    got = ssd_chunked_bwd_cuda(*args, chunk=chunk)
+    again = ssd_chunked_bwd_cuda(*args, chunk=chunk)
+    want = ssd_backward_ref_padded(*args, chunk=KERNEL_CHUNK)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, c) for g, c in zip(got, again)):
+        fail(f"SSD backward {what}: two runs differ")
+    rel = lambda a, w: ((a.double() - w.double()).abs().max() / w.abs().max()).item()  # noqa: E731
+    out = {"rel": [rel(g, w) for g, w in zip(got, want)],
+           "abs": max((g - w).abs().max().item() for g, w in zip(got, want))}
+    del again
+    if not (max(out["rel"]) <= TOL_SSD_BWD and all(bool(torch.isfinite(g).all()) for g in got)):
+        fail(f"SSD backward {what}: " + ", ".join(f"{n} {e:.3g}" for n, e in
+                                                   zip(SSD_GRADS, out["rel"]))
+             + f" of max|plain| > {TOL_SSD_BWD}, or not finite")
+    ref64 = ssd_backward_ref_padded(*(t.double() for t in args), chunk=KERNEL_CHUNK)
+    out["kernel_f64"] = [rel(g, w) for g, w in zip(got, ref64)]
+    out["plain_f64"] = [rel(g, w) for g, w in zip(want, ref64)]
+    # da per head, where it is not ~0 against the largest head: the kernel's
+    # and the f32 plain version's worst relative error
+    live = ref64[4].abs() > 1e-6 * ref64[4].abs().max()
+    out["da_head_f64"] = [((d.double() - ref64[4]).abs()[live] / ref64[4].abs()[live])
+                          .max().item() for d in (got[4], want[4])]
+    del ref64, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssd_bwd_parity(card: str) -> float:
+    """(f) The SSD backward kernel against its plain version over the sweep
+    (f32 pin, two runs equal), and against an f64 plain run beside the f32
+    plain version's own error."""
+    worst, worst_k64, worst_p64 = 0.0, 0.0, 0.0
+    for i, (b, s, h, dh, n, scale) in enumerate(SSD_BWD_CASES):
+        xs, bm, cm, dt, a = ssd_case(b, s, h, dh, n, 90 + 7 * i)
+        args = (xs, bm, cm, dt * scale, a, randn((b, s, h, dh), 95 + 7 * i))
+        e = ssd_bwd_errors(args, s, (b, s, h, dh, n, f"dt x {scale}"))
+        worst = max(worst, *e["rel"])
+        k64, p64 = max(e["kernel_f64"]), max(e["plain_f64"])
+        worst_k64, worst_p64 = max(worst_k64, k64), max(worst_p64, p64)
+        say("train", f"SSD backward {(b, s, h, dh, n)} dt x {scale}: " + ", ".join(
+            f"{g} {x:.3g}" for g, x in zip(SSD_GRADS, e["rel"])) + f" of max|plain| (f32); "
+            f"against f64 the kernel {k64:.3g}, the f32 plain {p64:.3g} (da per head, relative: "
+            f"kernel {e['da_head_f64'][0]:.3g}, plain {e['da_head_f64'][1]:.3g})")
+    say("train", f"SSD backward kernel vs plain, {len(SSD_BWD_CASES)} cases: worst {worst:.3g} of "
+                 f"max|plain| (pin {TOL_SSD_BWD}), two runs equal in every case; against the f64 "
+                 f"plain version the kernel's worst {worst_k64:.3g}, the f32 plain version's "
+                 f"{worst_p64:.3g}; {card}")
+    return worst
+
+
 def bigram_tokens(vocab: int, batch: int, seq: int, seed: int):
     """``examples/train_lm.py``'s synthetic stream, drawn in torch on the
     card: a first token from a Zipf-like law, then a fixed random bigram
@@ -1646,14 +1749,17 @@ def train_config(arch: str, layers: int):
 
 def train_lm(card: str, arch: str, layers: int, batch: int, microbatch: int, seq: int,
              steps: int, launches: tuple, seed: int) -> dict:
-    """(b)/(c) ``arch`` at its published widths in bf16 (f32 moments, every
-    group rematerialized), ``steps`` AdamW steps on one repeated batch of the
-    bigram stream; the flash launches of each step counted, and the
-    backward's inputs of the first step of each window kept."""
+    """(b)/(c)/(g) ``arch`` at its published widths in bf16 (f32 moments,
+    every group rematerialized), ``steps`` AdamW steps on one repeated batch
+    of the bigram stream; the flash and SSD launches of each step counted
+    (``launches``: flash forward, backward, SSD forward, backward), and the
+    inputs of the first step's first flash backward of each window and
+    first SSD backward kept."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
     from repro_torch.models import lm
     from repro_torch.models.common import tree_leaves
     from repro_torch.runtime import train
@@ -1670,7 +1776,8 @@ def train_lm(card: str, arch: str, layers: int, batch: int, microbatch: int, seq
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, secs, counts = [], [], []
-    with capture_first(flash_ops, "flash_attention_bwd_cuda", lambda kw: kw["window"]) as calls:
+    with capture_first(flash_ops, "flash_attention_bwd_cuda", lambda kw: kw["window"]) as calls, \
+            capture_first(ssm_ops, "ssd_chunked_bwd_cuda", lambda kw: "ssd") as ssd_calls:
         for _ in range(steps):
             reset_launch_counts()
             t0 = time.perf_counter()
@@ -1680,6 +1787,7 @@ def train_lm(card: str, arch: str, layers: int, batch: int, microbatch: int, seq
             secs.append(time.perf_counter() - t0)
             c = launch_counts()
             counts.append((c["flash_attention_cuda"], c["flash_attention_bwd_cuda"],
+                           c["ssd_chunked_cuda"], c["ssd_chunked_bwd_cuda"],
                            c["flash_attention_cuda_windowed"],
                            c["flash_attention_bwd_cuda_windowed"]))
     peak = torch.cuda.max_memory_allocated()
@@ -1688,9 +1796,9 @@ def train_lm(card: str, arch: str, layers: int, batch: int, microbatch: int, seq
             f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, vocab {cfg.vocab_size})")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         fail(f"{what}: losses {losses} not all finite, or the last not below the first")
-    if any(c[:2] != launches for c in counts):
-        fail(f"{what}: flash (forward, backward) launches a step {[c[:2] for c in counts]}, "
-             f"not {launches}")
+    if any(c[:4] != launches for c in counts):
+        fail(f"{what}: (flash forward, backward, SSD forward, backward) launches a step "
+             f"{[c[:4] for c in counts]}, not {launches}")
     if "--profile" in sys.argv[1:]:
         profile_lm(f"{cfg.name} train step B={batch} x {seq}", lambda: step(state, tokens))
     steady = sum(secs[1:]) / (len(secs) - 1)
@@ -1700,14 +1808,16 @@ def train_lm(card: str, arch: str, layers: int, batch: int, microbatch: int, seq
                  + (f", microbatch={microbatch}" if microbatch else "") + "); "
                  f"losses {', '.join(f'{x:.4f}' for x in losses)}; seconds a step "
                  f"{', '.join(f'{x:.3f}' for x in secs)} ({batch * seq / steady:.0f} tokens/s "
-                 f"after the first); peak device memory {peak / 2**30:.2f} GiB; flash launches a "
-                 f"step: forward {counts[0][0]} ({counts[0][2]} windowed), backward {counts[0][1]} "
-                 f"({counts[0][3]} windowed); {card}")
+                 f"after the first); peak device memory {peak / 2**30:.2f} GiB; launches a step: "
+                 f"flash forward {counts[0][0]} ({counts[0][4]} windowed), backward {counts[0][1]} "
+                 f"({counts[0][5]} windowed); SSD scan forward {counts[0][2]}, backward "
+                 f"{counts[0][3]}; {card}")
     del state, params, tokens, step
     release()
-    return {"calls": calls, "losses": losses, "secs": secs, "peak_bytes": peak,
-            "bwd_launches": sum(c[1] for c in counts),
-            "bwd_launches_windowed": sum(c[3] for c in counts),
+    return {"calls": calls, "ssd_calls": ssd_calls, "losses": losses, "secs": secs,
+            "peak_bytes": peak, "bwd_launches": sum(c[1] for c in counts),
+            "bwd_launches_windowed": sum(c[5] for c in counts),
+            "ssd_bwd_launches": sum(c[3] for c in counts),
             "tokens_per_s": batch * seq / steady}
 
 
@@ -1781,15 +1891,29 @@ def resume_in_child() -> None:
 
 
 def phase_train(card: str) -> dict:
-    """Phase 11 (a)-(d): the backward kernel, llama3.2-1b whole, gemma2-27b
-    at full width, resume; returns what (e) times."""
+    """Phase 11 (a)-(d), (f), (g): the flash backward kernel, llama3.2-1b
+    whole, gemma2-27b at full width, the SSD backward kernel, zamba2-2.7b
+    whole, resume; returns what (e) times."""
     worst = flash_bwd_parity(card)
     llama = train_lm(card, **TRAIN_LLAMA)
     gemma = train_lm(card, **TRAIN_GEMMA)
+    worst_ssd = ssd_bwd_parity(card)
+    zamba = train_lm(card, **TRAIN_ZAMBA)
     resume_in_child()
     errors = {}
+    (args, kw), = zamba["ssd_calls"].values()
+    e = ssd_bwd_errors(args, kw["chunk"], f"on the zamba2 step's own inputs {tuple(args[0].shape)}")
+    errors["ssd_chunked_bwd"] = e["abs"]
+    say("train", f"SSD backward on the zamba2-2.7b train step's own inputs xs "
+                 f"{tuple(args[0].shape)} N={args[1].shape[-1]} (chunk {kw['chunk']}; the kernel "
+                 f"at 64): " + ", ".join(f"{g} {x:.3g}" for g, x in zip(SSD_GRADS, e["rel"]))
+                 + f" of max|plain| (pin {TOL_SSD_BWD}), max-abs {e['abs']:.3g}, two runs equal; "
+                 f"against f64 the kernel {max(e['kernel_f64']):.3g}, the f32 plain "
+                 f"{max(e['plain_f64']):.3g}; da per head, relative: kernel "
+                 f"{e['da_head_f64'][0]:.3g}, plain {e['da_head_f64'][1]:.3g}")
     for tag, run, window in (("llama", llama, 0), ("gemma2", gemma, 0),
-                             ("window_gemma2", gemma, TRAIN_GEMMA["seq"] // 2)):
+                             ("window_gemma2", gemma, TRAIN_GEMMA["seq"] // 2),
+                             ("hd80_zamba2", zamba, 0)):
         args, kw = run["calls"][window]
         abs_err, rel, fwd_rel = flash_bwd_group_errors(args, kw, f"on the {tag} step")
         if not rel <= TOL_FLASH_BWD:
@@ -1802,7 +1926,8 @@ def phase_train(card: str) -> dict:
                      f"(pin {TOL_FLASH}); the backward against flash_backward_ref fed the plain o "
                      f"and lse: max-abs {abs_err:.3g}, {rel:.3g} of max|plain| (pin "
                      f"{TOL_FLASH_BWD})")
-    return {"worst_sweep": worst, "llama": llama, "gemma": gemma, "errors": errors}
+    return {"worst_sweep": worst, "worst_ssd_sweep": worst_ssd, "llama": llama, "gemma": gemma,
+            "zamba": zamba, "errors": errors}
 
 
 def flex_backward_yardstick(q, k, v, do, window: int, softcap: float):
@@ -1837,14 +1962,16 @@ def train_times(card: str, trained: dict) -> list[dict]:
     from repro_torch.kernels.flash_attention.ref import flash_backward_ref
 
     rows = []
-    llama, gemma = trained["llama"], trained["gemma"]
+    llama, gemma, zamba = trained["llama"], trained["gemma"], trained["zamba"]
     window = TRAIN_GEMMA["seq"] // 2
     for tag, run, w, launches, label in (
             ("llama", llama, 0, llama["bwd_launches"], "llama3.2-1b microbatch, causal"),
             ("gemma2", gemma, 0, gemma["bwd_launches"] - gemma["bwd_launches_windowed"],
              "gemma2-27b global, causal, softcap 50"),
             ("window_gemma2", gemma, window, gemma["bwd_launches_windowed"],
-             f"gemma2-27b, causal, window {window}, softcap 50")):
+             f"gemma2-27b, causal, window {window}, softcap 50"),
+            ("hd80_zamba2", zamba, 0, zamba["bwd_launches"],
+             "zamba2-2.7b shared attention microbatch, causal")):
         (q, k, v, o, lse, do), kw = run["calls"][w]
         name = f"flash_attention_bwd_{tag}"
         b, s, h, hd = q.shape
@@ -1880,15 +2007,83 @@ def train_times(card: str, trained: dict) -> list[dict]:
                      "replaces": "src/repro/kernels/flash_attention/ops.py:254",
                      "launches": launches, "max_abs_err": trained["errors"][tag],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": library, "bound_f32_fma_ms": fma_ms,
-                     "bound_design_14hd_ms": design_ms})
+                     "library_ms": library})
         lib = "null" if library is None else f"{library:.4f} ms"
         say("times", f"{name} ({b}, {s}, {h}, {kvh}, {hd}, {label}): {ms:.4f} ms, bound "
                      f"{b_ms:.4f} ms ({b_by}: 10 hd FLOPs a live pair at 3 TF32 passes; "
                      f"{b_ms / ms:.1%} of it; this design's 14 hd {design_ms:.4f} ms; f32 FMA "
                      f"bound {fma_ms:.4f} ms), plain {plain_ms:.4f} ms (per kv-head group, "
                      f"summed), FlexAttention backward {lib}; launches {launches}; {card}")
+    rows.append(ssd_bwd_times(card, zamba, trained["errors"]["ssd_chunked_bwd"]))
     return rows
+
+
+def ssd_bwd_flops(b: int, s: int, h: int, dh: int, n: int, q: int) -> int:
+    """Product FLOPs of the SSD backward at chunk q (ssd_backward_ref's
+    formulas): per head and chunk of r rows, the lower triangles of P = dy
+    x^T, of the scores' products with dy (dx) and of theirs with B and C
+    (dC, dB): r (r + 1) (2 dh + 2 N); dy h, B dH^T and x dH, and the two
+    state recurrences (10 r dh N); the states' decays (2 dh N).  G = C B^T
+    once per (batch row, chunk): heads share it."""
+    per_head, shared = 0, 0
+    for t0 in range(0, s, q):
+        r = min(q, s - t0)
+        per_head += r * (r + 1) * (2 * dh + 2 * n) + 10 * r * dh * n + 2 * dh * n
+        shared += r * (r + 1) * n
+    return b * (h * per_head + shared)
+
+
+def ssd_bwd_design_bytes(b: int, s: int, h: int, dh: int, n: int) -> int:
+    """Bytes the backward's four kernels move: the states pass reads xs, bm,
+    dy, cm and dt (dt twice) and writes the two (B, H, nc, dh, N) states;
+    the chunk kernel reads xs, dy, bm, cm, dt (per head: bm and cm H times,
+    from L2 at best) and both states and writes dxs, ddt, the per-head dbm
+    and dcm partials (B, S, H, N) and the da partials; the reduction reads
+    the partials and writes dbm and dcm."""
+    nc = -(-s // 64)
+    x, bn, t, st = b * s * h * dh, b * s * n, b * s * h, b * h * nc * dh * n
+    part = b * s * h * n
+    states = 2 * x + 2 * bn + 2 * t + 2 * st
+    chunk = 2 * x + 2 * bn * h + t + 2 * st + x + t + 2 * part + b * h * nc
+    return 4 * (states + chunk + 2 * part + 2 * bn + b * h * nc + h)
+
+
+def ssd_bwd_times(card: str, zamba: dict, err: float) -> dict:
+    """(e) The SSD backward kernel on the zamba2 step's own inputs beside its
+    bound (inputs and outputs once; the fewest product FLOPs of any chunking
+    at 3 TF32 passes), the plain version at the kernel's chunk, and the
+    bytes this design moves."""
+    from repro_torch.kernels.ssm_scan.kernel import KERNEL_CHUNK, ssd_chunked_bwd_cuda
+    from repro_torch.kernels.ssm_scan.ref import ssd_backward_ref_padded
+
+    (args, kw), = zamba["ssd_calls"].values()
+    b, s, h, dh = args[0].shape
+    n = args[1].shape[-1]
+    ms = cuda_time_ms(lambda: ssd_chunked_bwd_cuda(*args, **kw), 10)
+    plain_ms = cuda_time_ms(lambda: ssd_backward_ref_padded(*args, chunk=KERNEL_CHUNK), 1)
+    nbytes = (3 * args[0].numel() + 4 * args[1].numel() + 2 * args[3].numel() + 2 * h) * 4
+    q_min = min((2 ** k for k in range(s.bit_length())),
+                key=lambda c: ssd_bwd_flops(b, s, h, dh, n, c))
+    flops = ssd_bwd_flops(b, s, h, dh, n, q_min)
+    b_ms, b_by, fma_ms = bound_ms(nbytes, flops, F32_PRODUCT_S_PER_FLOP)
+    flops_64 = ssd_bwd_flops(b, s, h, dh, n, KERNEL_CHUNK)
+    design = ssd_bwd_design_bytes(b, s, h, dh, n)
+    design_ms = bound_ms(design, flops_64, F32_PRODUCT_S_PER_FLOP)[0]
+    fma_64_ms = flops_64 / F32_FLOP_PER_S * 1e3
+    steps = TRAIN_ZAMBA["steps"]
+    say("times", f"ssd_chunked_bwd xs {(b, s, h, dh)} N={n} (zamba2-2.7b microbatch): {ms:.4f} "
+                 f"ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e9:.3f} GB once, "
+                 f"{flops / 1e9:.2f} GFLOP at Q={q_min} at 3 TF32 passes; {b_ms / ms:.1%} of it; "
+                 f"f32 FMA bound {fma_ms:.4f} ms); this design: {flops_64 / 1e9:.2f} GFLOP at "
+                 f"Q={KERNEL_CHUNK} on the FMA units ({fma_64_ms:.4f} ms at 67 TFLOP/s), "
+                 f"{design / 1e9:.3f} GB (states and partials counted), bound {design_ms:.4f} ms; "
+                 f"plain {plain_ms:.4f} ms; library none; launches {zamba['ssd_bwd_launches']} in "
+                 f"{steps} steps; {card}")
+    return {"name": "ssd_chunked_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            "replaces": "src/repro/models/ssm.py:105", "launches": zamba["ssd_bwd_launches"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
 def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
@@ -1924,7 +2119,7 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[name], "max_abs_err": errors[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": library, "bound_f32_fma_ms": fma_ms, **extra})
+                     "library_ms": library, **extra})
         lib = "none" if library is None else f"{library:.4f} ms"
         say("times", f"{name} {shape}: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
                      f"{b_ms / ms:.1%} of it; f32 FMA bound {fma_ms:.4f} ms), plain "
@@ -1979,8 +2174,7 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     row("dequant_matmul", "src/repro_torch/kernels/csrc/quantize.cu",
         "src/repro/kernels/quantize/kernel.py:122", fused,
         lambda: dequant_matmul_ref(q, sc, w, torch.float32, 256), 5, dq_bytes, dq_flops,
-        CODE_PRODUCT_S_PER_FLOP, (rows_n, d, proj), unfused_ms=unfused_best,
-        bound_split_tf32_ms=tf32_ms)
+        CODE_PRODUCT_S_PER_FLOP, (rows_n, d, proj), unfused_ms=unfused_best)
     say("times", f"dequant_matmul at its own route (2 split-TF32 passes): bound {tf32_ms:.4f} "
                  f"ms, {tf32_ms / rows[-1]['ms']:.1%} of it; {card}")
     say("times", f"dequant_matmul fused vs unfused (dequantize kernel + torch.matmul), "
@@ -2061,8 +2255,7 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
         "src/repro/kernels/ssm_scan/kernel.py:66",
         lambda: ssd_chunked_cuda(*args, chunk=sq), lambda: ssd_ref(*args, chunk=q), 10,
         nbytes, ssd_flops(n, sq, h, dh, ns, q_min), F32_PRODUCT_S_PER_FLOP,
-        (n, sq, h, dh, ns, f"kernel and plain at Q={q}, bound at Q={q_min}"),
-        segments=p)
+        (n, sq, h, dh, ns, f"kernel and plain at Q={q}, bound at Q={q_min}"))
     flops_q = ssd_flops(n, sq, h, dh, ns, q)
     b_ms, b_by, fma_ms = bound_ms(nbytes, flops_q, F32_PRODUCT_S_PER_FLOP)
     say("times", f"ssd_chunked at this design's Q={q}: {flops_q / 1e9:.2f} GFLOP, bound "
@@ -2135,9 +2328,15 @@ def main() -> None:
         import repro_torch  # noqa: F401
     except ImportError as e:
         fail(f"the port's package is not beside this script ({e})")
+    import torch._dynamo
+
     from repro_torch.core.execution import resolve_device
 
     resolve_device("cuda")  # full-f32 matmuls: the plain versions are f32 references
+    # the FlexAttention yardsticks (phases 10, 11) compile flex_attention
+    # anew for each shape; past dynamo's default of 8 compiles the rest
+    # would silently run its unfused fallback
+    torch._dynamo.config.recompile_limit = max(torch._dynamo.config.recompile_limit, 64)
     if RESUME_FLAG in sys.argv[1:]:  # phase 11(d), in the child resume_in_child starts
         resume_check(card, **RESUME)
         return
@@ -2183,7 +2382,8 @@ def main() -> None:
     for arch, r in served_lm.items():
         say("lm", f"{arch}: prefill {r['prefill_s']:.3f} s, decode {r['decode_ms']:.2f} ms a step, "
                   f"peak {r['peak_bytes'] / 2**30:.2f} GiB")
-    for what, r in (("llama3.2-1b", trained["llama"]), ("gemma2-27b (2 layers)", trained["gemma"])):
+    for what, r in (("llama3.2-1b", trained["llama"]), ("gemma2-27b (2 layers)", trained["gemma"]),
+                    ("zamba2-2.7b", trained["zamba"])):
         say("train", f"{what}: {r['tokens_per_s']:.0f} tokens/s, seconds a step "
                      + ", ".join(f"{x:.3f}" for x in r["secs"]) + ", losses "
                      + ", ".join(f"{x:.4f}" for x in r["losses"])

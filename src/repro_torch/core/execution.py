@@ -65,7 +65,6 @@ def require_no_grad(op: str, *tensors: torch.Tensor) -> None:
         return
     if any(t.requires_grad for t in tensors if t.is_floating_point()):
         raise NotImplementedError(
-            f"{op}: the CUDA kernel has no backward yet (ROADMAP.md queue 1; the SSD "
-            f"scan's is item 5a); call it under "
-            f"torch.no_grad(), or on CPU tensors, where autograd runs through the "
-            f"plain version")
+            f"{op}: the CUDA kernel has no backward (ROADMAP.md queue 1: the int8 "
+            f"codec's kernels serve inference only); call it under torch.no_grad(), "
+            f"or on CPU tensors, where autograd runs through the plain version")

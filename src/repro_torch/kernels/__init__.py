@@ -2,7 +2,7 @@
 
 ``quantize`` (int8 boundary codec: quantize, dequantize, fused
 dequant-matmul), ``flash_attention`` (forward and backward) and
-``ssm_scan`` (the chunked Mamba2 SSD scan).  CUDA sources live in
+``ssm_scan`` (the chunked Mamba2 SSD scan, forward and backward).  CUDA sources live in
 ``csrc/`` and are built at the first CUDA call (``_build``).
 """
 
@@ -15,7 +15,7 @@ from repro_torch.kernels.quantize.kernel import (
     dequantize_int8_cuda,
     quantize_int8_cuda,
 )
-from repro_torch.kernels.ssm_scan.kernel import ssd_chunked_cuda
+from repro_torch.kernels.ssm_scan.kernel import ssd_chunked_bwd_cuda, ssd_chunked_cuda
 
 # every kernel wrapper; each counts its launches in ``.launches``
 KERNEL_WRAPPERS = (
@@ -25,6 +25,7 @@ KERNEL_WRAPPERS = (
     flash_attention_cuda,
     flash_attention_bwd_cuda,
     ssd_chunked_cuda,
+    ssd_chunked_bwd_cuda,
 )
 
 

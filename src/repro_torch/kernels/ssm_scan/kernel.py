@@ -1,4 +1,5 @@
-"""Wrapper of the CUDA chunked SSD scan kernel (``csrc/ssd_scan.cu``).
+"""Wrappers of the CUDA chunked SSD scan kernels: the forward
+(``csrc/ssd_scan.cu``) and the backward (``csrc/ssd_scan_bwd.cu``).
 
 Checks what the kernel takes and raises on anything else: contiguous
 float32 CUDA tensors xs (B, S, H, dh), bm and cm (B, S, N), dt (B, S, H),
@@ -18,6 +19,14 @@ every segment but the last from a zero state for its end state and decay,
 into scratch the wrapper allocates here; the second folds those for its
 segment's starting state and scans it.  ``ref.ssd_ref_segmented`` is the
 same decomposition in plain PyTorch.
+
+``ssd_chunked_bwd_cuda`` takes the same tensors and dy (B, S, H, dh), under
+the same checks, and returns (dxs, dbm, dcm, ddt, da), new f32 tensors.  It
+tiles at ``KERNEL_CHUNK`` too and allocates the scratch its four kernels
+share: the state entering and the gradient of the state leaving every
+chunk, (B, H, nc, dh, N) each, each head's share of dbm and dcm, (B, S, H,
+N) each (1.34 GB together at zamba2-2.7b's microbatch of 4 x 4096), and
+each chunk's share of da.  One call is one launch in ``launches``.
 """
 
 from __future__ import annotations
@@ -66,16 +75,8 @@ def _require(t: torch.Tensor, name: str, shape: tuple) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def ssd_chunked_cuda(
-    xs: torch.Tensor,  # (B, S, H, dh)
-    bm: torch.Tensor,  # (B, S, N)
-    cm: torch.Tensor,  # (B, S, N)
-    dt: torch.Tensor,  # (B, S, H)
-    a: torch.Tensor,  # (H,)
-    *,
-    chunk: int = 128,
-    segments: int | None = None,
-) -> torch.Tensor:
+def _require_scan(xs, bm, cm, dt, a, chunk: int) -> tuple[int, int, int, int, int]:
+    """Check the scan's inputs as both kernels take them; returns (B, S, H, dh, N)."""
     if xs.dim() != 4 or bm.dim() != 3:
         raise ValueError(f"xs must be (B, S, H, dh) and bm (B, S, N), got "
                          f"{tuple(xs.shape)} / {tuple(bm.shape)}")
@@ -91,6 +92,20 @@ def ssd_chunked_cuda(
         raise ValueError(f"kernel takes dh and N in 1..{MAX_WIDTH}, got dh={dh}, N={n}")
     if b > 65535 or h > 65535:
         raise ValueError("kernel grid takes at most 65535 batch rows and heads")
+    return b, s, h, dh, n
+
+
+def ssd_chunked_cuda(
+    xs: torch.Tensor,  # (B, S, H, dh)
+    bm: torch.Tensor,  # (B, S, N)
+    cm: torch.Tensor,  # (B, S, N)
+    dt: torch.Tensor,  # (B, S, H)
+    a: torch.Tensor,  # (H,)
+    *,
+    chunk: int = 128,
+    segments: int | None = None,
+) -> torch.Tensor:
+    b, s, h, dh, n = _require_scan(xs, bm, cm, dt, a, chunk)
     if segments is not None and segments < 1:
         raise ValueError(f"segments must be at least 1, got {segments}")
     n_chunks = -(-s // KERNEL_CHUNK)
@@ -114,3 +129,40 @@ def ssd_chunked_cuda(
 
 
 ssd_chunked_cuda.launches = 0
+
+
+def ssd_chunked_bwd_cuda(
+    xs: torch.Tensor,  # (B, S, H, dh)
+    bm: torch.Tensor,  # (B, S, N)
+    cm: torch.Tensor,  # (B, S, N)
+    dt: torch.Tensor,  # (B, S, H)
+    a: torch.Tensor,  # (H,)
+    dy: torch.Tensor,  # (B, S, H, dh)
+    *,
+    chunk: int = 128,
+) -> tuple[torch.Tensor, ...]:
+    """(dxs, dbm, dcm, ddt, da) of ``ssd_chunked_cuda``'s y, given dy."""
+    b, s, h, dh, n = _require_scan(xs, bm, cm, dt, a, chunk)
+    _require(dy, "dy", (b, s, h, dh))
+    nc = -(-s // KERNEL_CHUNK)
+    dev = xs.device
+    new = torch.empty if b and s and h else torch.zeros  # nothing to launch: zero gradients
+    shapes = ((b, s, h, dh), (b, s, n), (b, s, n), (b, s, h), (h,))
+    dxs, dbm, dcm, ddt, da = (new(sh, dtype=torch.float32, device=dev) for sh in shapes)
+    if not (b and s and h):
+        return dxs, dbm, dcm, ddt, da
+    states, dstates, dbp, dcp, dap = (
+        torch.empty(sh, dtype=torch.float32, device=dev)
+        for sh in ((b, h, nc, dh, n), (b, h, nc, dh, n), (b, s, h, n), (b, s, h, n), (b, h, nc)))
+    err = _build.lib().seifer_ssd_scan_bwd(
+        xs.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(), a.data_ptr(),
+        dy.data_ptr(), dxs.data_ptr(), dbm.data_ptr(), dcm.data_ptr(), ddt.data_ptr(),
+        da.data_ptr(), states.data_ptr(), dstates.data_ptr(), dbp.data_ptr(),
+        dcp.data_ptr(), dap.data_ptr(), b, s, h, dh, n,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ssd_scan_bwd")
+    ssd_chunked_bwd_cuda.launches += 1
+    return dxs, dbm, dcm, ddt, da
+
+
+ssd_chunked_bwd_cuda.launches = 0

@@ -22,6 +22,10 @@ one f32 ulp is ~1e-5), so the order decides whether the port holds the JAX
 package's 1e-5 pin; the CUDA kernel sums in the same order, so its cum is
 bit-identical to this version's.
 
+``ssd_backward_ref`` is the gradient of ``ssd_ref``'s y, the plain
+version of the backward kernel (``csrc/ssd_scan_bwd.cu``) and the CPU path
+of the op's ``SSDScan`` Function.
+
 The CUDA kernel cuts each sequence into segments of whole chunks so that
 its blocks fill the card; ``ssd_ref_segmented`` is that decomposition in
 plain PyTorch (end states of the segments from zero, folded in order), and
@@ -104,6 +108,98 @@ def ssd_ref(xs, bm, cm, dt, a, *, chunk: int = 64, state0=None):
     return torch.stack(ys, 1).reshape(b, s, h, dh), state
 
 
+def ssd_backward_ref(xs, bm, cm, dt, a, dy, *, chunk: int = 64):
+    """The gradient of ``ssd_ref``'s y (the op returns y only, so the final
+    state's gradient is zero) -> (dxs, dbm, dcm, ddt, da), f32 (f64 for f64
+    inputs).
+
+    The chunk-entry states h are recomputed by ``ssd_ref``'s recurrence; the
+    chunks are then walked in reverse, carrying dH, the gradient of the
+    state leaving the chunk.  Per chunk and per (b, h), with L_ts =
+    exp(cum_t - cum_s) (s <= t, masked before exp), G_ts = C_t.B_s, P_ts =
+    dy_t.x_s, e_t = exp(cum_t), o_s = exp(cum_L - cum_s) (L the last row):
+
+      dx_s   = sum_t G_ts L_ts dt_s dy_t + o_s dt_s dH B_s
+      dC_t  += sum_h [sum_s P_ts L_ts dt_s B_s + e_t h^T dy_t]
+      dB_s  += sum_h [sum_t P_ts L_ts dt_s C_t + o_s dt_s dH^T x_s]
+      r_s    = o_s x_s^T dH B_s
+      ddt_s  = sum_t P_ts G_ts L_ts + r_s + dda_s a
+      dcum_t = sum_s M_ts - sum_t' M_t't + e_t dy_t.(h C_t) - r_t dt_t,
+               M_ts = P_ts G_ts L_ts dt_s;  the last row also takes
+               exp(cum_L) <dH, h> + sum_s r_s dt_s
+      dda    = dcum summed from the end of the chunk
+      dH    <- exp(cum_L) dH + sum_t e_t dy_t C_t^T
+
+    da_h = sum dcum_t T_t (T the in-chunk cumsum of dt) is taken pairwise,
+    as sum_{s<=t} M_ts (T_t - T_s) + sum_t e_t dy_t.(h C_t) T_t + sum_s r_s
+    dt_s (T_L - T_s) + exp(cum_L) <dH, h> T_L: summed as sum_t dcum_t T_t
+    (or sum_s dda_s dt_s, what autograd of ``ssd_ref`` does) it cancels
+    terms of size |T| M, and at strong decay (|cum| ~ 1e3) f32 keeps no
+    digit of it.
+    """
+    b, s, h, dh = xs.shape
+    n = bm.shape[-1]
+    q = chunk_of(s, chunk)
+    nc = s // q
+    f = torch.promote_types(xs.dtype, torch.float32)
+    xs_c = xs.reshape(b, nc, q, h, dh).to(f)
+    dy_c = dy.reshape(b, nc, q, h, dh).to(f)
+    bm_c = bm.reshape(b, nc, q, n)
+    cm_c = cm.reshape(b, nc, q, n)
+    dt_c = dt.reshape(b, nc, q, h)
+    cum = chunk_cumsum((dt * a).reshape(b, nc, q, h), 2)
+    tsum = chunk_cumsum(dt_c, 2)  # T: cum / a, for da
+    upper = ~torch.ones((q, q), dtype=torch.bool, device=xs.device).tril()
+
+    states = []
+    state = torch.zeros((b, h, dh, n), dtype=f, device=xs.device)
+    for c in range(nc):
+        states.append(state)
+        decay_out = torch.exp(cum[:, c, -1:] - cum[:, c])
+        contrib = torch.einsum("bsh,bsn,bshd->bhdn", decay_out * dt_c[:, c], bm_c[:, c],
+                               xs_c[:, c])
+        state = state * torch.exp(cum[:, c, -1])[:, :, None, None] + contrib
+
+    dh_state = torch.zeros((b, h, dh, n), dtype=f, device=xs.device)
+    dxs, dbm, dcm, ddt = [], [], [], []
+    da = torch.zeros_like(a, dtype=f)
+    for c in reversed(range(nc)):
+        x, bb, cc, dtk, cumk, tk, dyk, hst = (
+            xs_c[:, c], bm_c[:, c], cm_c[:, c], dt_c[:, c], cum[:, c], tsum[:, c], dy_c[:, c],
+            states[c])
+        ldiff = cumk[:, :, None, :] - cumk[:, None, :, :]  # (B, t, s, H)
+        lmat = torch.exp(ldiff.masked_fill(upper[None, :, :, None], float("-inf")))
+        gbc = torch.einsum("btn,bsn->bts", cc, bb)
+        pmat = torch.einsum("bthd,bshd->btsh", dyk, x)
+        e = torch.exp(cumk)
+        el = torch.exp(cumk[:, -1])  # (B, H)
+        o = torch.exp(cumk[:, -1:] - cumk)
+        z = pmat * gbc[..., None] * lmat
+        m = z * dtk[:, None]
+        sp = pmat * lmat * dtk[:, None]
+        u = torch.einsum("bsn,bhdn->bshd", bb, dh_state)  # dH B_s
+        vh = torch.einsum("bthd,bhdn->bthn", dyk, hst)  # h^T dy_t
+        dxs.append(torch.einsum("btsh,bthd->bshd", gbc[..., None] * lmat * dtk[:, None], dyk)
+                   + (o * dtk)[..., None] * u)
+        dcm.append(torch.einsum("btsh,bsn->btn", sp, bb) + torch.einsum("bth,bthn->btn", e, vh))
+        dbm.append(torch.einsum("btsh,btn->bsn", sp, cc)
+                   + torch.einsum("bsh,bshd,bhdn->bsn", o * dtk, x, dh_state))
+        r = o * (x * u).sum(-1)
+        ev = e * torch.einsum("bthn,btn->bth", vh, cc)
+        hdh = el * torch.einsum("bhdn,bhdn->bh", dh_state, hst)
+        dcum = m.sum(2) - m.sum(1) + ev - r * dtk
+        dcum = torch.cat([dcum[:, :-1], dcum[:, -1:] + (hdh + (r * dtk).sum(1))[:, None]], 1)
+        dda = dcum.flip(1).cumsum(1).flip(1)
+        ddt.append(z.sum(1) + r + dda * a)
+        tdiff = (tk[:, :, None] - tk[:, None, :]).masked_fill(upper[None, :, :, None], 0.0)
+        da = da + ((m * tdiff).sum((0, 1, 2)) + (ev * tk + r * dtk * (tk[:, -1:] - tk)).sum((0, 1))
+                   + (hdh * tk[:, -1]).sum(0))
+        dh_state = (el[:, :, None, None] * dh_state
+                    + torch.einsum("bth,bthd,btn->bhdn", e, dyk, cc))
+    cat = lambda parts: torch.stack(parts[::-1], 1).flatten(1, 2)  # noqa: E731
+    return cat(dxs), cat(dbm), cat(dcm), cat(ddt), da
+
+
 def ssd_ref_padded(xs, bm, cm, dt, a, *, chunk: int):
     """``ssd_ref`` at ``chunk`` for any S: S is zero-padded up to a multiple
     of ``chunk`` (zero rows add nothing to earlier rows of a causal scan)
@@ -113,6 +209,18 @@ def ssd_ref_padded(xs, bm, cm, dt, a, *, chunk: int):
     pad = -s % chunk
     padded = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (xs, bm, cm, dt)]
     return ssd_ref(*padded, a, chunk=chunk)[0][:, :s]
+
+
+def ssd_backward_ref_padded(xs, bm, cm, dt, a, dy, *, chunk: int):
+    """``ssd_backward_ref`` at ``chunk`` for any S, padded as
+    ``ssd_ref_padded`` pads (zero rows add nothing to any gradient) and cut
+    back to S: at the kernel's chunk, the plain backward chunked exactly as
+    the CUDA backward chunks it."""
+    s = xs.shape[1]
+    pad = -s % chunk
+    padded = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (xs, bm, cm, dt, dy)]
+    grads = ssd_backward_ref(*padded[:4], a, padded[4], chunk=chunk)
+    return *(g[:, :s] for g in grads[:4]), grads[4]
 
 
 def segment_starts(n_chunks: int, segments: int) -> list[int]:

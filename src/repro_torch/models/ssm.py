@@ -3,9 +3,10 @@
 The JAX package's ``models/ssm.py`` in PyTorch.  ``mamba_forward``'s scan
 is the JAX package's inline chunked scan (``ssm.py``'s ``chunk_step``),
 which is ``ssd_ref`` at ``chunk`` plus the D skip: here it goes through the
-port's ``ssd_chunked`` op -- the hand-written SSD kernel for CUDA tensors,
-the plain ``ssd_ref`` (whose in-chunk cumsum takes XLA's CPU order) on the
-CPU -- and the skip is added after.  All gate math is fp32.
+port's ``ssd_chunked`` op -- the hand-written SSD kernels (forward and, under
+grad, backward) for CUDA tensors, the plain ``ssd_ref`` (whose in-chunk
+cumsum takes XLA's CPU order) and ``ssd_backward_ref`` on the CPU -- and the
+skip is added after.  All gate math is fp32.
 
 Layout: d_inner = ssm_expand * d_model, heads of size HEAD_DIM, single B/C
 group (n_groups=1), scalar-per-head A (the Mamba2 restriction).
@@ -85,7 +86,8 @@ def mamba_forward(cfg, p: dict, x: torch.Tensor, *, chunk: int = DEFAULT_CHUNK) 
     xs = xbc[..., :d_in].reshape(b, s, h, HEAD_DIM)
     bm = xbc[..., d_in:d_in + n].float().contiguous()  # (B,S,N)
     cm = xbc[..., d_in + n:].float().contiguous()
-    a = -torch.exp(p["A_log"])  # (H,)
+    # (H,); widened exactly, as the JAX package's dt * a promotes a bf16 a
+    a = (-torch.exp(p["A_log"])).float()
     xs32 = xs.float().contiguous()
     y = ssd_chunked(xs32, bm, cm, dt.contiguous(), a.contiguous(), chunk=chunk)
     y = y + xs32 * p["D"][None, None, :, None]

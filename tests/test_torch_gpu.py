@@ -38,9 +38,15 @@ from repro_torch.kernels.quantize.ref import (
 from repro_torch.kernels.ssm_scan.kernel import (
     KERNEL_CHUNK,
     default_segments,
+    ssd_chunked_bwd_cuda,
     ssd_chunked_cuda,
 )
-from repro_torch.kernels.ssm_scan.ref import ssd_ref, ssd_ref_padded, ssd_ref_segmented
+from repro_torch.kernels.ssm_scan.ref import (
+    ssd_backward_ref_padded,
+    ssd_ref,
+    ssd_ref_padded,
+    ssd_ref_segmented,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -412,6 +418,76 @@ def test_ssd_wrapper_refuses(cuda):
             ssd_chunked_cuda(*args, chunk=96, segments=bad)
 
 
+# of max|plain| per gradient: the JAX package's gradient tolerance is 1e-4;
+# chip_smoke.py measured 6.8e-7 at worst, so the pin is 5e-6, as there
+TOL_SSD_BWD = 5e-6
+
+
+def _ssd_bwd_case(cuda, b, s, h, dh, n, seed, dt_scale=1.0):
+    xs, bm, cm, dt, a = _ssd_case(cuda, b, s, h, dh, n, seed)
+    return xs, bm, cm, dt * dt_scale, a, _randn((b, s, h, dh), seed + 5, cuda)
+
+
+def _assert_ssd_bwd(args, chunk, seed_note):
+    """The backward kernel against ``ssd_backward_ref`` chunked as the kernel
+    chunks (at ``KERNEL_CHUNK``, padded), all five gradients; two runs equal."""
+    got = ssd_chunked_bwd_cuda(*args, chunk=chunk)
+    again = ssd_chunked_bwd_cuda(*args, chunk=chunk)
+    want = ssd_backward_ref_padded(*args, chunk=KERNEL_CHUNK)
+    torch.cuda.synchronize()
+    for name, g, c, w in zip(("dxs", "dbm", "dcm", "ddt", "da"), got, again, want):
+        assert g.shape == w.shape and torch.isfinite(g).all(), (name, seed_note)
+        assert torch.equal(g, c), (name, seed_note, "two runs differ")
+        assert _ssd_rel(g, w) <= TOL_SSD_BWD, (name, seed_note, _ssd_rel(g, w))
+
+
+@pytest.mark.parametrize("dt_scale", [1.0, 0.01])
+@pytest.mark.parametrize("b,s,h,dh,n,chunk", SSD_SHAPES)
+def test_ssd_backward_matches_plain(cuda, b, s, h, dh, n, chunk, dt_scale):
+    """Over the forward's shapes (ragged S, dh and N below 64 among them), at
+    the plain dt and at dt / 100, where the carried states reach every
+    later chunk."""
+    _assert_ssd_bwd(_ssd_bwd_case(cuda, b, s, h, dh, n, 70, dt_scale), chunk, dt_scale)
+
+
+@pytest.mark.parametrize("b,s,h,dh,n", [
+    (1, 40, 3, 64, 64),     # S < 64: one ragged chunk
+    (1, 1000, 2, 22, 37),   # dh and N < 64, not multiples of 4, ragged last chunk
+    (2, 4096, 80, 64, 64),  # zamba2-2.7b's Mamba2 layer at half its training microbatch
+])
+def test_ssd_backward_edges(cuda, b, s, h, dh, n):
+    _assert_ssd_bwd(_ssd_bwd_case(cuda, b, s, h, dh, n, 71, 0.01), s, (b, s, h, dh, n))
+
+
+def test_ssd_backward_strong_decay(cuda):
+    """dt x 200 with a = (-5, -0.5) (the forward's strong-decay test): the
+    masked exp above the diagonal overflows and every carried state
+    underflows; every gradient finite and at the pin."""
+    xs, bm, cm, dt, _, dy = _ssd_bwd_case(cuda, 1, 512, 2, 64, 16, 72)
+    a = torch.tensor([-5.0, -0.5], device=xs.device)
+    _assert_ssd_bwd((xs, bm, cm, dt * 200.0, a, dy), 512, "strong decay")
+
+
+def test_ssd_op_gradient_through_the_kernels(cuda):
+    """``ssd_chunked`` under grad on CUDA runs ``SSDScan``: one forward and
+    one backward launch, and the plain gradients at the caller's chunk
+    within the chunk-invariance pin."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ssm_scan.ops import ssd_chunked
+
+    *args, dy = _ssd_bwd_case(cuda, 2, 512, 4, 64, 32, 73)
+    ins = [t.clone().requires_grad_() for t in args]
+    reset_launch_counts()
+    y = ssd_chunked(*ins, chunk=256)
+    got = torch.autograd.grad(y, ins, dy)
+    counts = launch_counts()
+    assert counts["ssd_chunked_cuda"] == 1 and counts["ssd_chunked_bwd_cuda"] == 1
+    ref_ins = [t.detach().cpu().double().requires_grad_() for t in args]
+    want = torch.autograd.grad(ssd_ref(*ref_ins, chunk=256)[0], ref_ins, dy.cpu().double())
+    for g, w in zip(got, want):
+        assert ((g.cpu().double() - w).abs().max() / w.abs().max()).item() <= 1e-4
+
+
 def test_replicated_demo_mlp_card_matches_cpu(cuda):
     """demo_mlp with ``replicas=2`` and int8 hops on the card (quantize and
     dequantize kernels) against the same deploy on the CPU (the plain
@@ -674,18 +750,15 @@ def test_ops_without_a_backward_raise_on_grad(cuda):
     """On CUDA, an op whose kernel has no backward raises where autograd
     would want a gradient through it, and runs under no_grad."""
     from repro_torch.kernels.quantize.ops import dequant_matmul, dequantize_int8, quantize_int8
-    from repro_torch.kernels.ssm_scan.ops import ssd_chunked
 
     x = _randn((4, 512), 60, cuda)
     q, s = quantize_int8(x, 256)
     w = _randn((512, 64), 61, cuda)
-    xs, bm, cm, dt, a = _ssd_case(cuda, 1, 128, 2, 16, 16, 62)
     calls = [
         lambda grad: quantize_int8(x.clone().requires_grad_(grad), 256),
         lambda grad: dequantize_int8(q, s.clone().requires_grad_(grad), torch.float32, block=256),
         lambda grad: dequant_matmul(q, s, w.clone().requires_grad_(grad), torch.float32,
                                     block=256),
-        lambda grad: ssd_chunked(xs.clone().requires_grad_(grad), bm, cm, dt, a, chunk=64),
     ]
     for call in calls:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -695,22 +768,45 @@ def test_ops_without_a_backward_raise_on_grad(cuda):
         call(False)
 
 
+# arch, d_model (hd 64 and 80), and the launches of one step of 2
+# microbatches: flash forward, backward, SSD forward, backward.  llama: 2
+# layers, the forward twice (remat); zamba2: 12 Mamba2 layers in 6 groups,
+# each with the shared block
+TRAIN_CASES = [("llama3.2-1b", 256, (8, 4, 0, 0)), ("zamba2-2.7b", 320, (24, 12, 48, 24))]
+
+# the bf16 zamba2 step's gradient leaves, card against CPU, of max|cpu|:
+# the CPU's own leaves move by up to 4.90e-2 of max|ref| at this test's
+# seeds (4.59e-2 to 5.04e-2 over weight seeds 0-2) when the scan is
+# chunked at 64 instead of 256 (scripts/zamba2_bf16_spread.py); the card
+# read 3.8e-2.  Twice the reference's own spread
+ZAMBA2_BF16_LEAF_TOL = 1e-1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_small_train_step_card_matches_cpu(cuda, dtype):
-    """One AdamW step of a small llama3.2-1b (d = 256: hd 64; S = 2048, so
-    the flash forward and backward kernels run; 2 microbatches of 1) on the
-    card and on the CPU from the same weights and tokens: the loss, the
-    gradient norm and every accumulated gradient leaf within 1e-4 (f32) or
-    3e-2 (bf16) of max|cpu|.  The updated params differ by at most 2 lr
-    more: AdamW's first step moves each param by lr times the sign of its
-    gradient, which flips between the two for gradients near 0."""
+@pytest.mark.parametrize("arch,d_model,launches", TRAIN_CASES, ids=[c[0] for c in TRAIN_CASES])
+def test_small_train_step_card_matches_cpu(cuda, dtype, arch, d_model, launches):
+    """One AdamW step of a small llama3.2-1b (d = 256: hd 64) and zamba2-2.7b
+    (d = 320: the shared block at hd 80, Mamba2 at 10 heads of 64, N = 16);
+    S = 2048, so the flash forward and backward kernels run (and zamba2's SSD
+    scan and its backward); 2 microbatches of 1; on the card and on the CPU
+    from the same weights and tokens: the loss, the gradient norm and every
+    accumulated gradient leaf within 1e-4 (f32) or 3e-2 (bf16) of max|cpu|.
+    The updated params differ by at most 2 lr more: AdamW's first step
+    moves each param by lr times the sign of its gradient, which flips
+    between the two for gradients near 0.
+
+    zamba2's bf16 gradients are chaotic: on the CPU alone they move when
+    the f32 scan is only chunked at 64 instead of 256 (exact in math: its
+    rounding flips bf16 roundings downstream) by about as much as the
+    card's differ from the CPU's.  There each gradient leaf is held to
+    ``ZAMBA2_BF16_LEAF_TOL``; loss, gradient norm and params keep 3e-2."""
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import lm
     from repro_torch.models.common import tree_leaves, tree_map
     from repro_torch.runtime import train
 
-    cfg = reduced(ARCHS["llama3.2-1b"], d_model=256, vocab=512)
+    cfg = reduced(ARCHS[arch], d_model=d_model, vocab=512)
     base = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu", max_pos=64)
     base = tree_map(lambda t: t.to(dtype), base)
     tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 2048), dtype=np.int32)
@@ -727,15 +823,15 @@ def test_small_train_step_card_matches_cpu(cuda, dtype):
         runs[str(dev)] = (metrics, tree_leaves(grads), tree_leaves(state["params"]))
         if dev != "cpu":
             counts = launch_counts()
-            # 2 layers x 2 microbatches, the forward twice (remat)
-            assert counts["flash_attention_cuda"] == 8
-            assert counts["flash_attention_bwd_cuda"] == 4
+            assert (counts["flash_attention_cuda"], counts["flash_attention_bwd_cuda"],
+                    counts["ssd_chunked_cuda"], counts["ssd_chunked_bwd_cuda"]) == launches
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     (cm, cg, cp), (gm, gg, gp) = runs["cpu"], runs[str(cuda)]
     for key in ("loss", "grad_norm"):
         assert abs(gm[key].item() - cm[key].item()) <= tol * abs(cm[key].item()), key
+    leaf_tol = ZAMBA2_BF16_LEAF_TOL if (arch, dtype) == ("zamba2-2.7b", torch.bfloat16) else tol
     for got, want in zip(gg, cg):
-        assert got.is_cuda and _rel(got, want) <= tol
+        assert got.is_cuda and _rel(got, want) <= leaf_tol
     for got, want in zip(gp, cp):
         assert got.is_cuda and got.dtype == dtype
         diff = (got.float().cpu() - want.float()).abs().max().item()

@@ -2,9 +2,10 @@
 
 ``lm.loss_fn`` and its gradient in every param leaf (``runtime.train``'s
 ``_value_and_grad``) against ``jax.value_and_grad`` of the JAX
-``loss_fn``, for reduced llama3.2-1b and gemma2-27b with params cast to
-f32, at S = 16 and at S = 2048, where ``attend`` takes the flash op on both
-sides (the port's ``FlashAttention`` Function, the JAX custom VJP); remat
+``loss_fn``, for reduced llama3.2-1b, gemma2-27b and zamba2-2.7b with
+params cast to f32, at S = 16 and at S = 2048, where ``attend`` takes the
+flash op on both sides (the port's ``FlashAttention`` Function, the JAX
+custom VJP) and zamba2's scan runs ``SSDScan``'s plain backward; remat
 on and off; ``adamw_update`` on the same numpy state and gradients as the
 JAX one; microbatch accumulation, warmup, clipping and the moments' dtype
 as ``tests/test_train_runtime.py`` checks them; and every arch of the zoo
@@ -48,11 +49,28 @@ def _port_value_and_grad(tcfg, tp, batch):
     return ttrain._value_and_grad(lambda p, b: tlm.loss_fn(tcfg, p, b), tp, batch)
 
 
+# reduced zamba2's A_log at S = 2048: a = -0.05, so a chunk of 256 decays by
+# ~10 (see test_loss_and_grads_match_jax)
+SLOW_A_LOG = float(np.log(0.05))
+
+
 @pytest.mark.parametrize("s", [16, 2048])
-@pytest.mark.parametrize("name", ["llama3.2-1b", "gemma2-27b"])
+@pytest.mark.parametrize("name", ["llama3.2-1b", "gemma2-27b", "zamba2-2.7b"])
 def test_loss_and_grads_match_jax(name, s):
+    """At S = 2048 zamba2's shared block takes the flash op and its Mamba2
+    layers four chunks of 256.  There the JAX gradient at init is NaN: its
+    scan masks after exp, and exp(cum_t - cum_s) above the diagonal
+    overflows once a chunk decays by more than 88 (~180 at A_log = 0), so
+    the mask's VJP multiplies 0 by inf.  Both packages then take A_log =
+    log(0.05); ``test_zamba2_grads_finite_where_jax_overflows`` holds the
+    port at the init params."""
     jcfg, tcfg = configs(name)
     jp, tp = both_params(jcfg, f32=True)
+    if name == "zamba2-2.7b" and s == 2048:
+        mamba = jp["blocks"]["mamba"]
+        jp = {**jp, "blocks": {**jp["blocks"], "mamba": {
+            **mamba, "A_log": jnp.full_like(mamba["A_log"], SLOW_A_LOG)}}}
+        tp = params_from_numpy(to_numpy(jp), "cpu")
     b = 2 if s == 16 else 1
     batch = batch_np(jcfg, b, s, seed=3, f32=True)
     (jl, jparts), jg = jax.jit(jax.value_and_grad(
@@ -61,6 +79,19 @@ def test_loss_and_grads_match_jax(name, s):
     assert tl.dtype == torch.float32 and tl.shape == ()
     assert rel_err(tl, jl) <= TOL_F32 and rel_err(tparts["xent"], jparts["xent"]) <= TOL_F32
     assert_trees_close(tg, to_numpy(jg), TOL_F32, f"{name} S={s} grads")
+
+
+def test_zamba2_grads_finite_where_jax_overflows():
+    """Reduced zamba2 at its init params and S = 2048, where the JAX
+    gradient is NaN: the port's scan masks before exp in its backward too,
+    so its loss and every gradient leaf are finite."""
+    jcfg, tcfg = configs("zamba2-2.7b")
+    _, tp = both_params(jcfg, f32=True)
+    batch = batch_np(jcfg, 1, 2048, seed=3, f32=True)
+    (tl, _), tg = _port_value_and_grad(tcfg, tp, to_torch(batch))
+    assert torch.isfinite(tl)
+    bad = [path for path, g in leaves(tg) if not torch.isfinite(g).all()]
+    assert not bad, bad
 
 
 @pytest.mark.parametrize("name", ["llama3.2-1b", "zamba2-2.7b", "whisper-small"])
