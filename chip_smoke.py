@@ -113,7 +113,7 @@ the first fault:
    (b) llama3.2-1b whole (16 layers, d=2048, 32/8 heads of 64, vocab
    128256, tied embeddings: 1.236 B params), bf16 params and f32 moments,
    at train_4k's S=4096 with its global batch of 256 cut to 16, as 2
-   microbatches of 8; 4 AdamW steps (lr 1e-3, warmup 1) on one repeated
+   microbatches of 8; 3 AdamW steps (lr 1e-3, warmup 1) on one repeated
    batch of the bigram stream of ``examples/train_lm.py``: every loss
    finite and the last below the first, 64 flash forward and 32 backward
    launches a step.  (c) gemma2-27b at full width, depth cut to one local
@@ -147,12 +147,32 @@ the first fault:
    on (b)'s, (c)'s and (g)'s own inputs beside its bound (10 hd FLOPs a
    live pair at 3 TF32 passes; this design's 14 hd beside it), its plain
    version per kv-head group summed, and FlexAttention's backward under
-   ``torch.compile`` ((forward + backward) - forward); the SSD backward
+   ``torch.compile`` ((forward + backward) - forward), or where its template
+   does not compile (hd 160) and there is no softcap or window,
+   ``scaled_dot_product_attention``'s (``enable_gqa``, timed the same way
+   and held to the kernel's gradients); the SSD backward
    (``ssd_chunked_bwd``) on (g)'s own inputs beside its bound (xs, dy, dxs
    and the small tensors once; the fewest product FLOPs of any chunking at
    3 TF32 passes), the bytes and FLOPs of its own design, and its plain
-   version (no PyTorch call computes it: library none).  ``--profile``
-   adds one more step of each model under ``torch.profiler``.
+   version (no PyTorch call computes it: library none).  (h)-(l) One arch
+   of each remaining family at its published widths, bf16 params, moments
+   and gradient accumulation in its ``opt_state_dtype``, every group
+   rematerialized, on one repeated batch as in (b): phi3.5-moe-42b-a6.6b
+   cut to 2 of 32 layers (16 experts top-2, hd 128), kimi-k2-1t-a32b cut to
+   2 of 61 layers and 32 of 384 experts (top-8, hd 112, bf16 state) and
+   pixtral-12b cut to 8 of 40 layers (hd 160, patches (B, 256, 1024)), each
+   B=8 x 4096 as 2 microbatches of 4; whisper-small whole (12 + 12 layers,
+   frames (B, 4096, 768): non-causal encoder and cross attention, causal
+   decoder) at B=16 x 4096; xlstm-125m whole (none of the port's kernels)
+   at B=16 and ``TRAIN_XLSTM``'s S.  Every loss finite and the last below
+   the first, the launches checked every step (flash also by causal or
+   not); the flash backward on each step's own inputs held as in (b), and
+   timed in (e) at hd 128, 112, 160 and non-causal hd 64.  (m) ``python -m
+   repro_torch.launch.train`` on whisper-small whole, B=4 x 4096: 3 steps
+   with a checkpoint at 2, then the same command to 4 steps, which must
+   print the JAX CLI's resume line; every loss finite.  ``--profile``
+   adds one more step of each model that runs the port's kernels under
+   ``torch.profiler``.
 
 The last three lines are a JSON object of the kernels, the card's name and
 power limit, and the device line.
@@ -1035,17 +1055,20 @@ def lm_card_vs_cpu(arch: str, d_model: int) -> None:
 class capture_first:
     """Wrap ``module.name`` so that its first call of each ``key(kwargs)``
     keeps a copy of its tensor arguments (the inputs a kernel took on the
-    served path); restored on exit."""
+    served path; nothing when ``keep`` is false) and every call is counted
+    by key in ``counts``; restored on exit."""
 
-    def __init__(self, module, name: str, key):
-        self.module, self.name, self.key, self.calls = module, name, key, {}
+    def __init__(self, module, name: str, key, keep: bool = True):
+        self.module, self.name, self.key, self.keep = module, name, key, keep
+        self.calls, self.counts = {}, {}
 
     def __enter__(self):
         self.orig = getattr(self.module, self.name)
 
         def wrapper(*args, **kw):
             k = self.key(kw)
-            if k not in self.calls:
+            self.counts[k] = self.counts.get(k, 0) + 1
+            if self.keep and k not in self.calls:
                 self.calls[k] = (tuple(a.clone() for a in args), kw)
             return self.orig(*args, **kw)
 
@@ -1482,10 +1505,10 @@ def phase_replicas(card: str) -> None:
     serve_autoscaled(card, graph, ex)
 
 
-def flex_mask(s: int, window: int, softcap: float):
-    """FlexAttention's (score_mod, block_mask) of causal attention over S
-    tokens: the softcap (if any) as ``score_mod``, causal (and the window)
-    as a ``block_mask``."""
+def flex_mask(s: int, window: int, softcap: float, causal: bool = True):
+    """FlexAttention's (score_mod, block_mask) of attention over S tokens:
+    the softcap (if any) as ``score_mod``, causal (and the window) as a
+    ``block_mask``; without ``causal`` every pair the window allows."""
     import torch
     from torch.nn.attention.flex_attention import create_block_mask
 
@@ -1493,7 +1516,7 @@ def flex_mask(s: int, window: int, softcap: float):
         return softcap * torch.tanh(score / softcap)
 
     def mask_mod(b, h, q_idx, kv_idx):
-        ok = q_idx >= kv_idx
+        ok = q_idx >= kv_idx if causal else q_idx >= 0
         return ok & (q_idx - kv_idx < window) if window > 0 else ok
 
     block_mask = create_block_mask(mask_mod, B=None, H=None, Q_LEN=s, KV_LEN=s, device="cuda")
@@ -1518,7 +1541,7 @@ TRAIN_OPT = dict(lr=1e-3, warmup_steps=1)
 # llama3.2-1b whole (src/repro/configs/archs.py:77-90); train_4k's S=4096,
 # its global batch of 256 cut to 16 as 2 microbatches of 8.  Launches a
 # step: flash forward 16 layers x 2 (remat) x 2 microbatches, backward 32
-TRAIN_LLAMA = dict(arch="llama3.2-1b", layers=0, batch=16, microbatch=8, seq=4096, steps=4,
+TRAIN_LLAMA = dict(arch="llama3.2-1b", layers=0, batch=16, microbatch=8, seq=4096, steps=3,
                    launches=(64, 32, 0, 0), seed=71)
 # gemma2-27b at full width (archs.py:109-128), depth cut to one local +
 # global group (2 of 46 layers); B=1 x S=8192, where its 4096 window masks
@@ -1531,12 +1554,51 @@ TRAIN_GEMMA = dict(arch="gemma2-27b", layers=2, batch=1, microbatch=0, seq=8192,
 # scan forward 54 x 2 x 2, backward 108
 TRAIN_ZAMBA = dict(arch="zamba2-2.7b", layers=0, batch=8, microbatch=4, seq=4096, steps=3,
                    launches=(36, 18, 216, 108), seed=77)
+# (h)-(l): one arch of each remaining family at its published widths, at
+# train_4k's S=4096 (xlstm: S chosen by a step's time), every group
+# rematerialized, 2 steps (the script's time limit).  Launches a step: flash forward layers x 2 (remat) x
+# microbatches, backward layers x microbatches
+# phi3.5-moe (archs.py:29-43: d=4096, 32/8 heads of 128, 16 experts top-2,
+# d_ff 6400), depth cut to 2 of 32 layers; B=8 as 2 microbatches of 4
+TRAIN_PHI = dict(arch="phi3.5-moe-42b-a6.6b", layers=2, batch=8, microbatch=4, seq=4096, steps=2,
+                 launches=(8, 4, 0, 0), seed=79)
+# kimi-k2 (archs.py:45-59: d=7168, 64/8 heads of 112, top-8 of 384 experts,
+# d_ff 2048, bf16 optimizer state), cut to 2 of 61 layers and 32 experts
+TRAIN_KIMI = dict(arch="kimi-k2-1t-a32b", layers=2, experts=32, batch=8, microbatch=4, seq=4096,
+                  steps=2, launches=(8, 4, 0, 0), seed=81)
+# pixtral-12b (archs.py:14-26: d=5120, 32/8 heads of 160, d_ff 14336, vocab
+# 131072), cut to 8 of 40 layers; patches (B, 256, 1024) as launch/specs.py
+TRAIN_PIXTRAL = dict(arch="pixtral-12b", layers=8, batch=8, microbatch=4, seq=4096, steps=2,
+                     launches=(32, 16, 0, 0), seed=83)
+# whisper-small whole (archs.py:131-146: 12 encoder + 12 decoder layers,
+# d=768, 12 heads of 64), frames (B, 4096, 768) as launch/specs.py:28.
+# Launches a step: the encoder's 12 (non-causal), the decoder's 12 causal
+# and 12 cross (non-causal, Sq == Skv), x 2 (remat); backward 36
+TRAIN_WHISPER = dict(arch="whisper-small", layers=0, batch=16, microbatch=0, seq=4096, steps=2,
+                     launches=(72, 36, 0, 0), seed=85)
+# xlstm-125m whole (archs.py:149-162: 12 layers, sLSTM at 0, 4, 8, d=768):
+# none of the port's kernels; the sLSTM is a Python loop over time, so S is
+# the largest of 1024, 2048, 4096 whose step stays under 30 s: a steady
+# step takes 20-24 s at 2048 on an H100, twice that at 4096 (PERF.md)
+TRAIN_XLSTM = dict(arch="xlstm-125m", layers=0, batch=16, microbatch=0, seq=2048, steps=2,
+                   launches=(0, 0, 0, 0), seed=87)
+# the CLI on the card: whisper-small whole, 3 steps with a checkpoint at 2,
+# then again to 4 steps, resumed
+CLI_TRAIN = ["--arch", "whisper-small", "--full", "--batch", "4", "--seq", "4096",
+             "--ckpt-every", "2"]
 # resume equals uninterrupted: llama3.2-1b at full width cut to 2 of 16
 # layers (a checkpoint of 3.6 GB), B=4 x 4096
 RESUME = dict(arch="llama3.2-1b", layers=2, batch=4, seq=4096, seed=75)
 # of max|plain| per gradient: the JAX package's gradient tolerance is 1e-4;
 # the kernel measured 4.7e-6 at worst over the sweep, so the pin is 2e-5
 TOL_FLASH_BWD = 2e-5
+# whisper-small's dq on its train step's own inputs is a sum of thousands of
+# nearly cancelling terms (max|dq| 4.5e-9 beside max|dk| 2.7e-7): there the
+# f32 plain version itself errs by 1.24e-4 of max|f64| per (batch, kv-head
+# group) against an f64 plain run, and the kernel by 8.4e-5 (on an H100), so
+# no two f32 versions agree within TOL_FLASH_BWD.  Its dq is held to the f64
+# plain run at twice the f32 plain version's own error; dk and dv keep 2e-5
+TOL_FLASH_BWD_DQ_F64 = 2.5e-4
 # of max|plain| per gradient of the SSD backward: the JAX package's gradient
 # tolerance is 1e-4; the kernel measured 6.8e-7 at worst over the sweep and
 # the zamba2 step's own inputs, so the pin is 5e-6
@@ -1589,34 +1651,50 @@ def plain_residuals(q, k, v, o, lse, kw, what: str):
     return o_ref, lse_ref, rel[0], rel[1]
 
 
-def flash_bwd_group_errors(args, kw, what: str) -> tuple[float, float, float]:
+def flash_bwd_group_errors(args, kw, what: str, dq_exact: bool = False) -> dict:
     """Over every (batch, kv-head group): the forward's o and lse against
     ``attention_ref_lse`` on that group's slice (``plain_residuals``), and
     the backward kernel's dq, dk, dv against ``flash_backward_ref`` fed that
-    plain o and lse.  Returns (max-abs and max of max|err| / max|plain| of
-    the gradients, max of o's and lse's max|err| / max|plain|)."""
+    plain o and lse, each within TOL_FLASH_BWD of the group's max|plain|.
+    With ``dq_exact`` dq is held instead to an f64 plain run (the exact
+    yardstick) at TOL_FLASH_BWD_DQ_F64, and the f32 plain version's own dq
+    error against it is kept beside the kernel's.  Returns the gradients'
+    max-abs error and worst relative errors (keys "abs", "rel", "fwd",
+    "dq_f32" and, with ``dq_exact``, "dq_f64" and "plain_dq_f64")."""
     import torch
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
-    from repro_torch.kernels.flash_attention.ref import flash_backward_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref_lse, flash_backward_ref
 
     q, k, v, o, lse, do = args
     got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
-    worst_abs, worst_rel, worst_fwd = 0.0, 0.0, 0.0
+    out = {"abs": 0.0, "rel": 0.0, "fwd": 0.0, "dq_f32": 0.0}
+    if dq_exact:
+        out.update(dq_f64=0.0, plain_dq_f64=0.0)
+    rel = lambda a, w: ((a.double() - w.double()).abs().max() / w.abs().max()).item()  # noqa: E731
     for bs, hs, ks in kv_groups(q, k):
         qs, k_s, vs = q[bs, :, hs], k[bs, :, ks], v[bs, :, ks]
         o_ref, lse_ref, o_rel, lse_rel = plain_residuals(qs, k_s, vs, o[bs, :, hs], lse[bs, hs],
                                                          kw, what)
-        worst_fwd = max(worst_fwd, o_rel, lse_rel)
+        out["fwd"] = max(out["fwd"], o_rel, lse_rel)
         want = flash_backward_ref(qs, k_s, vs, o_ref, lse_ref, do[bs, :, hs], **kw)
-        for a, w in zip((got[0][bs, :, hs], got[1][bs, :, ks], got[2][bs, :, ks]), want):
-            err = (a - w).abs().max().item()
-            worst_abs = max(worst_abs, err)
-            worst_rel = max(worst_rel, err / w.abs().max().item())
+        mine = (got[0][bs, :, hs], got[1][bs, :, ks], got[2][bs, :, ks])
+        out["dq_f32"] = max(out["dq_f32"], rel(mine[0], want[0]))
+        for a, w in zip(mine[1:] if dq_exact else mine, want[1:] if dq_exact else want):
+            out["abs"] = max(out["abs"], (a - w).abs().max().item())
+            out["rel"] = max(out["rel"], rel(a, w))
+        if dq_exact:
+            exact = [t.double() for t in (qs, k_s, vs)]
+            o64, lse64 = attention_ref_lse(*exact, **kw)
+            dq64 = flash_backward_ref(*exact, o64, lse64, do[bs, :, hs].double(), **kw)[0]
+            out["dq_f64"] = max(out["dq_f64"], rel(mine[0], dq64))
+            out["plain_dq_f64"] = max(out["plain_dq_f64"], rel(want[0], dq64))
+            out["abs"] = max(out["abs"], (mine[0].double() - dq64).abs().max().item())
+            del exact, o64, lse64, dq64
         del want, o_ref, lse_ref
     del got
     torch.cuda.empty_cache()
-    return worst_abs, worst_rel, worst_fwd
+    return out
 
 
 def flash_bwd_parity(card: str) -> float:
@@ -1740,21 +1818,53 @@ def bigram_tokens(vocab: int, batch: int, seq: int, seed: int):
     return out
 
 
-def train_config(arch: str, layers: int):
+def train_config(arch: str, layers: int, experts: int = 0):
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+    cfg = dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+    return dataclasses.replace(cfg, n_experts=experts) if experts else cfg
+
+
+def train_batch(cfg, batch: int, seq: int, seed: int) -> dict:
+    """The bigram stream's tokens (B, S); for audio frames (B, S, d) and for
+    vlm patches (B, 256, PATCH_DIM) in bf16, drawn on the card from
+    ``seed``, at the shapes ``src/repro/launch/specs.py`` gives them."""
+    import torch
+
+    from repro_torch.models import lm
+
+    out = {"tokens": bigram_tokens(cfg.vocab_size, batch, seq, seed)}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    if cfg.family == "audio":
+        out["frames"] = (torch.randn((batch, seq, cfg.d_model), generator=gen, device="cuda")
+                         * 0.5).to(torch.bfloat16)
+    if cfg.family == "vlm":
+        out["patches"] = (torch.randn((batch, lm.PATCH_TOKENS, lm.PATCH_DIM), generator=gen,
+                                      device="cuda") * 0.1).to(torch.bfloat16)
+    return out
+
+
+def to_host(calls: dict) -> dict:
+    """Captured kernel inputs moved to host memory, so that later models
+    train with the card to themselves; ``on_card`` brings them back."""
+    return {k: (tuple(a.cpu() for a in args), kw) for k, (args, kw) in calls.items()}
+
+
+def on_card(args: tuple) -> tuple:
+    return tuple(a.cuda() for a in args)
 
 
 def train_lm(card: str, arch: str, layers: int, batch: int, microbatch: int, seq: int,
-             steps: int, launches: tuple, seed: int) -> dict:
-    """(b)/(c)/(g) ``arch`` at its published widths in bf16 (f32 moments,
-    every group rematerialized), ``steps`` AdamW steps on one repeated batch
-    of the bigram stream; the flash and SSD launches of each step counted
-    (``launches``: flash forward, backward, SSD forward, backward), and the
-    inputs of the first step's first flash backward of each window and
-    first SSD backward kept."""
+             steps: int, launches: tuple, seed: int, experts: int = 0) -> dict:
+    """(b)/(c)/(g)-(l) ``arch`` at its published widths in bf16 (moments in
+    its ``opt_state_dtype``, gradients accumulated in it too, every group
+    rematerialized), ``steps`` AdamW steps on one repeated batch of the
+    bigram stream (with frames or patches for audio and vlm); the flash
+    and SSD launches of each step counted (``launches``: flash forward,
+    backward, SSD forward, backward; flash also by (causal, window)), and
+    the inputs of the first step's first flash backward of each (causal,
+    window) and first SSD backward kept in host memory."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1765,18 +1875,21 @@ def train_lm(card: str, arch: str, layers: int, batch: int, microbatch: int, seq
     from repro_torch.runtime import train
 
     release()
-    cfg = train_config(arch, layers)
+    cfg = train_config(arch, layers, experts)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = lm.init_params(cfg, gen, device="cuda", max_pos=seq)
     n_params = sum(t.numel() for t in tree_leaves(params))
     state = train.init_state(cfg, params)
-    opt = train.OptConfig(**TRAIN_OPT, microbatch=microbatch)
+    opt = train.OptConfig(**TRAIN_OPT, microbatch=microbatch, accum_dtype=cfg.opt_state_dtype)
     step = train.make_train_step(cfg, opt)
-    tokens = {"tokens": bigram_tokens(cfg.vocab_size, batch, seq, seed + 1)}
+    tokens = train_batch(cfg, batch, seq, seed + 1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, secs, counts = [], [], []
-    with capture_first(flash_ops, "flash_attention_bwd_cuda", lambda kw: kw["window"]) as calls, \
+    kind = lambda kw: (kw["causal"], kw["window"])  # noqa: E731
+    fwd_kinds = capture_first(flash_ops, "flash_attention_cuda", kind, keep=False)
+    bwd_kinds = capture_first(flash_ops, "flash_attention_bwd_cuda", kind)
+    with bwd_kinds as calls, fwd_kinds, \
             capture_first(ssm_ops, "ssd_chunked_bwd_cuda", lambda kw: "ssd") as ssd_calls:
         for _ in range(steps):
             reset_launch_counts()
@@ -1791,33 +1904,48 @@ def train_lm(card: str, arch: str, layers: int, batch: int, microbatch: int, seq
                            c["flash_attention_cuda_windowed"],
                            c["flash_attention_bwd_cuda_windowed"]))
     peak = torch.cuda.max_memory_allocated()
+    full = train_config(arch, 0)
     what = (f"{cfg.name} ({n_params / 1e9:.3f} B params, {cfg.n_layers} layers"
-            + (f" of {train_config(arch, 0).n_layers}" if layers else "") + f", d={cfg.d_model}, "
-            f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, vocab {cfg.vocab_size})")
+            + (f" of {full.n_layers}" if layers else "")
+            + (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers else "")
+            + f", d={cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}"
+            + (f", {cfg.n_experts} experts" + (f" of {full.n_experts}" if experts else "")
+               + f" top-{cfg.experts_per_token}, d_ff {cfg.d_ff}" if cfg.n_experts else "")
+            + f", vocab {cfg.vocab_size})")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         fail(f"{what}: losses {losses} not all finite, or the last not below the first")
     if any(c[:4] != launches for c in counts):
         fail(f"{what}: (flash forward, backward, SSD forward, backward) launches a step "
              f"{[c[:4] for c in counts]}, not {launches}")
-    if "--profile" in sys.argv[1:]:
+    # a model that runs none of the port's kernels (xlstm) is not traced: its
+    # sLSTM launches ~1e6 tiny ops a step
+    if "--profile" in sys.argv[1:] and any(launches):
         profile_lm(f"{cfg.name} train step B={batch} x {seq}", lambda: step(state, tokens))
     steady = sum(secs[1:]) / (len(secs) - 1)
+    per_kind = lambda c: ", ".join(  # noqa: E731
+        f"{'causal' if k[0] else 'non-causal'}{f' window {k[1]}' if k[1] else ''} {n // steps}"
+        for k, n in sorted(c.items()))
     say("train", f"{what}: B={batch} x S={seq}" + (f" as {batch // microbatch} microbatches of "
-                 f"{microbatch}" if microbatch else "") + ", bf16 params, f32 moments, remat; "
+                 f"{microbatch}" if microbatch else "") + ", "
+                 + ", ".join(f"{k} {tuple(v.shape)}" for k, v in tokens.items() if k != "tokens")
+                 + (", " if len(tokens) > 1 else "")
+                 + f"bf16 params, {cfg.opt_state_dtype} moments, remat; "
                  f"OptConfig(lr={TRAIN_OPT['lr']}, warmup_steps={TRAIN_OPT['warmup_steps']}"
-                 + (f", microbatch={microbatch}" if microbatch else "") + "); "
+                 + (f", microbatch={microbatch}" if microbatch else "")
+                 + f", accum_dtype={cfg.opt_state_dtype}); "
                  f"losses {', '.join(f'{x:.4f}' for x in losses)}; seconds a step "
                  f"{', '.join(f'{x:.3f}' for x in secs)} ({batch * seq / steady:.0f} tokens/s "
                  f"after the first); peak device memory {peak / 2**30:.2f} GiB; launches a step: "
                  f"flash forward {counts[0][0]} ({counts[0][4]} windowed), backward {counts[0][1]} "
                  f"({counts[0][5]} windowed); SSD scan forward {counts[0][2]}, backward "
-                 f"{counts[0][3]}; {card}")
+                 f"{counts[0][3]}"
+                 + (f"; flash by kind a step: forward {per_kind(fwd_kinds.counts)}, backward "
+                    f"{per_kind(bwd_kinds.counts)}" if fwd_kinds.counts else "") + f"; {card}")
     del state, params, tokens, step
     release()
-    return {"calls": calls, "ssd_calls": ssd_calls, "losses": losses, "secs": secs,
-            "peak_bytes": peak, "bwd_launches": sum(c[1] for c in counts),
-            "bwd_launches_windowed": sum(c[5] for c in counts),
-            "ssd_bwd_launches": sum(c[3] for c in counts),
+    return {"calls": to_host(calls), "ssd_calls": to_host(ssd_calls), "losses": losses,
+            "secs": secs, "bwd_kinds": bwd_kinds.counts,
+            "peak_bytes": peak, "ssd_bwd_launches": sum(c[3] for c in counts),
             "tokens_per_s": batch * seq / steady}
 
 
@@ -1890,18 +2018,103 @@ def resume_in_child() -> None:
         fail(f"the resume check's child process exited with {child.returncode}")
 
 
+def flash_bwd_on_step(card: str, tag: str, run: dict, key: tuple, dq_exact: bool) -> float:
+    """The flash forward's o and lse, then the backward kernel, on a train
+    step's own inputs against the plain versions (``flash_bwd_group_errors``);
+    fails past the pins.  Returns the gradients' max-abs error."""
+    args, kw = run["calls"][key]
+    args = on_card(args)
+    e = flash_bwd_group_errors(args, kw, f"on the {tag} step", dq_exact)
+    if not e["rel"] <= TOL_FLASH_BWD:
+        fail(f"flash backward on the {tag} step's own inputs {tuple(args[0].shape)} {kw}: "
+             f"{e['rel']:.3g} of max|plain| > {TOL_FLASH_BWD}")
+    if dq_exact and not e["dq_f64"] <= TOL_FLASH_BWD_DQ_F64:
+        fail(f"flash backward on the {tag} step's own inputs {tuple(args[0].shape)} {kw}: dq "
+             f"{e['dq_f64']:.3g} of max|f64 plain| > {TOL_FLASH_BWD_DQ_F64}")
+    exact = (f"; dq against an f64 plain run: the kernel {e['dq_f64']:.3g}, the f32 plain "
+             f"version {e['plain_dq_f64']:.3g} of max|f64| (pin {TOL_FLASH_BWD_DQ_F64}), the "
+             f"kernel against the f32 plain {e['dq_f32']:.3g}" if dq_exact else "")
+    say("train", f"flash on the {tag} train step's own inputs q {tuple(args[0].shape)} kv "
+                 f"heads {args[1].shape[2]} {kw}, every (batch, kv-head group): the "
+                 f"forward's o and lse {e['fwd']:.3g} of max|plain| against attention_ref_lse "
+                 f"(pin {TOL_FLASH}); the backward against flash_backward_ref fed the plain o "
+                 f"and lse: max-abs {e['abs']:.3g}, {'dk, dv' if dq_exact else 'dq, dk, dv'} "
+                 f"{e['rel']:.3g} of max|plain| (pin {TOL_FLASH_BWD}){exact}; {card}")
+    del args
+    return e["abs"]
+
+
+def cli_train_resume(card: str) -> None:
+    """(m) ``python -m repro_torch.launch.train`` on the card: whisper-small
+    whole, 3 steps with a checkpoint at step 2, then the same command to 4
+    steps, which must print the resume line; every loss finite."""
+    import shutil
+
+    release()
+    directory = ROOT / "build" / "cli_ckpt"
+    shutil.rmtree(directory, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    outs = []
+    try:
+        for steps in (3, 4):
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *CLI_TRAIN,
+                                  "--steps", str(steps), "--ckpt-dir", str(directory)],
+                                 env=env, cwd=str(ROOT), capture_output=True, text=True,
+                                 timeout=600)
+            if run.returncode != 0:
+                fail(f"launch.train --steps {steps} exited with {run.returncode}: "
+                     f"{run.stderr[-2000:]}")
+            outs.append((run.stdout, time.perf_counter() - t0))
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    losses = [[float(x) for x in re.findall(r"^step +\d+ loss (\S+) gnorm", out, re.MULTILINE)]
+              for out, _ in outs]
+    if "resumed" in outs[0][0] or "resumed from step 2\n" not in outs[1][0]:
+        fail(f"launch.train did not resume from its checkpoint: {outs[1][0][-800:]}")
+    if not all(losses) or not all(math.isfinite(x) for ls in losses for x in ls):
+        fail(f"launch.train losses not finite: {losses}")
+    for (out, wall), steps in zip(outs, (3, 4)):
+        say("train", f"python -m repro_torch.launch.train {' '.join(CLI_TRAIN)} --steps {steps} "
+                     f"(process {wall:.1f} s): " + " | ".join(out.strip().splitlines())
+                     + f"; {card}")
+
+
+# the flash backward held on each step's own inputs: (tag, run, (causal,
+# window), dq held to an f64 plain run (whisper's, at TOL_FLASH_BWD_DQ_F64),
+# and the label of its row of (e), None for no row)
+FLASH_BWD_ON_STEPS = (
+    ("llama", "llama", (True, 0), False, "llama3.2-1b microbatch, causal"),
+    ("gemma2", "gemma", (True, 0), False, "gemma2-27b global, causal, softcap 50"),
+    ("window_gemma2", "gemma", (True, TRAIN_GEMMA["seq"] // 2), False,
+     f"gemma2-27b, causal, window {TRAIN_GEMMA['seq'] // 2}, softcap 50"),
+    ("hd80_zamba2", "zamba", (True, 0), False, "zamba2-2.7b shared attention microbatch, causal"),
+    ("hd128_phi35moe", "phi", (True, 0), False, "phi3.5-moe-42b-a6.6b microbatch, causal"),
+    ("hd112_kimi", "kimi", (True, 0), False, "kimi-k2-1t-a32b microbatch, causal"),
+    ("hd160_pixtral", "pixtral", (True, 0), False, "pixtral-12b microbatch, causal"),
+    ("noncausal_whisper", "whisper", (False, 0), True,
+     "whisper-small encoder and cross attention, non-causal"),
+    ("causal_whisper", "whisper", (True, 0), True, None))
+
+
 def phase_train(card: str) -> dict:
-    """Phase 11 (a)-(d), (f), (g): the flash backward kernel, llama3.2-1b
+    """Phase 11 (a)-(d), (f)-(m): the flash backward kernel, llama3.2-1b
     whole, gemma2-27b at full width, the SSD backward kernel, zamba2-2.7b
-    whole, resume; returns what (e) times."""
+    whole, resume, then phi3.5-moe, kimi-k2, pixtral-12b, whisper-small and
+    xlstm-125m and the CLI; returns what (e) times."""
     worst = flash_bwd_parity(card)
-    llama = train_lm(card, **TRAIN_LLAMA)
-    gemma = train_lm(card, **TRAIN_GEMMA)
+    runs = {"llama": train_lm(card, **TRAIN_LLAMA), "gemma": train_lm(card, **TRAIN_GEMMA)}
     worst_ssd = ssd_bwd_parity(card)
-    zamba = train_lm(card, **TRAIN_ZAMBA)
+    runs["zamba"] = train_lm(card, **TRAIN_ZAMBA)
     resume_in_child()
+    for name, conf in (("phi", TRAIN_PHI), ("kimi", TRAIN_KIMI), ("pixtral", TRAIN_PIXTRAL),
+                       ("whisper", TRAIN_WHISPER)):
+        runs[name] = train_lm(card, **conf)
+    runs["xlstm"] = train_lm(card, **TRAIN_XLSTM)
+    cli_train_resume(card)
     errors = {}
-    (args, kw), = zamba["ssd_calls"].values()
+    (args, kw), = runs["zamba"]["ssd_calls"].values()
+    args = on_card(args)
     e = ssd_bwd_errors(args, kw["chunk"], f"on the zamba2 step's own inputs {tuple(args[0].shape)}")
     errors["ssd_chunked_bwd"] = e["abs"]
     say("train", f"SSD backward on the zamba2-2.7b train step's own inputs xs "
@@ -1911,26 +2124,13 @@ def phase_train(card: str) -> dict:
                  f"against f64 the kernel {max(e['kernel_f64']):.3g}, the f32 plain "
                  f"{max(e['plain_f64']):.3g}; da per head, relative: kernel "
                  f"{e['da_head_f64'][0]:.3g}, plain {e['da_head_f64'][1]:.3g}")
-    for tag, run, window in (("llama", llama, 0), ("gemma2", gemma, 0),
-                             ("window_gemma2", gemma, TRAIN_GEMMA["seq"] // 2),
-                             ("hd80_zamba2", zamba, 0)):
-        args, kw = run["calls"][window]
-        abs_err, rel, fwd_rel = flash_bwd_group_errors(args, kw, f"on the {tag} step")
-        if not rel <= TOL_FLASH_BWD:
-            fail(f"flash backward on the {tag} step's own inputs {tuple(args[0].shape)} {kw}: "
-                 f"{rel:.3g} of max|plain| > {TOL_FLASH_BWD}")
-        errors[tag] = abs_err
-        say("train", f"flash on the {tag} train step's own inputs q {tuple(args[0].shape)} kv "
-                     f"heads {args[1].shape[2]} {kw}, every (batch, kv-head group): the "
-                     f"forward's o and lse {fwd_rel:.3g} of max|plain| against attention_ref_lse "
-                     f"(pin {TOL_FLASH}); the backward against flash_backward_ref fed the plain o "
-                     f"and lse: max-abs {abs_err:.3g}, {rel:.3g} of max|plain| (pin "
-                     f"{TOL_FLASH_BWD})")
-    return {"worst_sweep": worst, "worst_ssd_sweep": worst_ssd, "llama": llama, "gemma": gemma,
-            "zamba": zamba, "errors": errors}
+    del args
+    for tag, run, key, dq_exact, _ in FLASH_BWD_ON_STEPS:
+        errors[tag] = flash_bwd_on_step(card, tag, runs[run], key, dq_exact)
+    return {"worst_sweep": worst, "worst_ssd_sweep": worst_ssd, **runs, "errors": errors}
 
 
-def flex_backward_yardstick(q, k, v, do, window: int, softcap: float):
+def flex_backward_yardstick(q, k, v, do, window: int, softcap: float, causal: bool = True):
     """FlexAttention's backward under ``torch.compile``: the same score_mod
     and block_mask as phase 10's forward yardstick (``flex_mask``).
     Returns (forward, forward + backward) callables; the forward runs with
@@ -1938,13 +2138,34 @@ def flex_backward_yardstick(q, k, v, do, window: int, softcap: float):
     import torch
     from torch.nn.attention.flex_attention import flex_attention
 
-    mod, block_mask = flex_mask(q.shape[1], window, softcap)
+    mod, block_mask = flex_mask(q.shape[1], window, softcap, causal)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
     fn = torch.compile(flex_attention, dynamic=False)
 
     def forward():
         return fn(qt, kt, vt, score_mod=mod, block_mask=block_mask, enable_gqa=True)
+
+    def forward_backward():
+        return torch.autograd.grad(forward(), (qt, kt, vt), dot)
+
+    return forward, forward_backward
+
+
+def sdpa_backward_yardstick(q, k, v, do, causal: bool = True):
+    """``scaled_dot_product_attention`` (``enable_gqa``; PyTorch picks its
+    backend) under autograd on (B, H, S, hd) copies of q, k, v: the same
+    function as the kernel's where there is no softcap and no window, for
+    rows whose FlexAttention template does not compile.  Returns (forward,
+    forward + backward) callables."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def forward():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
     def forward_backward():
         return torch.autograd.grad(forward(), (qt, kt, vt), dot)
@@ -1962,17 +2183,14 @@ def train_times(card: str, trained: dict) -> list[dict]:
     from repro_torch.kernels.flash_attention.ref import flash_backward_ref
 
     rows = []
-    llama, gemma, zamba = trained["llama"], trained["gemma"], trained["zamba"]
-    window = TRAIN_GEMMA["seq"] // 2
-    for tag, run, w, launches, label in (
-            ("llama", llama, 0, llama["bwd_launches"], "llama3.2-1b microbatch, causal"),
-            ("gemma2", gemma, 0, gemma["bwd_launches"] - gemma["bwd_launches_windowed"],
-             "gemma2-27b global, causal, softcap 50"),
-            ("window_gemma2", gemma, window, gemma["bwd_launches_windowed"],
-             f"gemma2-27b, causal, window {window}, softcap 50"),
-            ("hd80_zamba2", zamba, 0, zamba["bwd_launches"],
-             "zamba2-2.7b shared attention microbatch, causal")):
-        (q, k, v, o, lse, do), kw = run["calls"][w]
+    for tag, run_name, key, _, label in FLASH_BWD_ON_STEPS:
+        if label is None:
+            continue
+        run = trained[run_name]
+        args, kw = run["calls"][key]
+        q, k, v, o, lse, do = on_card(args)
+        launches = run["bwd_kinds"][key]
+        causal, w = key
         name = f"flash_attention_bwd_{tag}"
         b, s, h, hd = q.shape
         kvh = k.shape[2]
@@ -1984,14 +2202,17 @@ def train_times(card: str, trained: dict) -> list[dict]:
 
         ms = cuda_time_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw), 3)
         plain_ms = cuda_time_ms(plain, 1)
-        live = (s * (s + 1) // 2 if w <= 0 else sum(min(i + 1, w) for i in range(s))) * b * h
+        if causal:
+            live = (s * (s + 1) // 2 if w <= 0 else sum(min(i + 1, w) for i in range(s))) * b * h
+        else:
+            live = s * s * b * h
         nbytes = (4 * q.numel() + 4 * k.numel() + lse.numel()) * 4  # q o dO dq, k v dk dv, lse
         b_ms, b_by, fma_ms = bound_ms(nbytes, 10 * hd * live, F32_PRODUCT_S_PER_FLOP)
         design_ms = bound_ms(nbytes, 14 * hd * live, F32_PRODUCT_S_PER_FLOP)[0]
-        library = None
+        library, lib_name = None, "FlexAttention backward"
         t0 = time.perf_counter()
         try:  # a yardstick only: its failure is reported, never timed
-            fwd, fwd_bwd = flex_backward_yardstick(q, k, v, do, w, kw["softcap"])
+            fwd, fwd_bwd = flex_backward_yardstick(q, k, v, do, w, kw["softcap"], causal)
             fwd_bwd()
             torch.cuda.synchronize()
             library = cuda_time_ms(fwd_bwd, 3) - cuda_time_ms(fwd, 3)
@@ -2000,7 +2221,28 @@ def train_times(card: str, trained: dict) -> list[dict]:
             del fwd, fwd_bwd
         except Exception as e:  # noqa: BLE001
             say("train", f"{name}: FlexAttention backward yardstick FAILED ({type(e).__name__}: "
-                         f"{str(e)[:300]}); library_ms null")
+                         f"{str(e)[:300]})")
+            torch.cuda.empty_cache()
+        if library is None and kw["softcap"] == 0 and w <= 0:
+            lib_name = "scaled_dot_product_attention backward"
+            try:
+                fwd, fwd_bwd = sdpa_backward_yardstick(q, k, v, do, causal)
+                got = [g.transpose(1, 2) for g in fwd_bwd()]
+                want = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+                agree = max(((g - x).abs().max() / x.abs().max()).item()
+                            for g, x in zip(got, want))
+                del got, want
+                library = cuda_time_ms(fwd_bwd, 3) - cuda_time_ms(fwd, 3)
+                say("train", f"{name}: scaled_dot_product_attention(is_causal={causal}, "
+                             f"enable_gqa=True) under autograd as the yardstick; its dq, dk, dv "
+                             f"agree with the kernel's within {agree:.3g} of max|kernel|")
+                del fwd, fwd_bwd
+            except Exception as e:  # noqa: BLE001
+                say("train", f"{name}: scaled_dot_product_attention yardstick FAILED "
+                             f"({type(e).__name__}: {str(e)[:300]})")
+        if library is None:
+            say("train", f"{name}: library_ms null")
+        del q, k, v, o, lse, do
         torch.cuda.empty_cache()
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -2013,8 +2255,8 @@ def train_times(card: str, trained: dict) -> list[dict]:
                      f"{b_ms:.4f} ms ({b_by}: 10 hd FLOPs a live pair at 3 TF32 passes; "
                      f"{b_ms / ms:.1%} of it; this design's 14 hd {design_ms:.4f} ms; f32 FMA "
                      f"bound {fma_ms:.4f} ms), plain {plain_ms:.4f} ms (per kv-head group, "
-                     f"summed), FlexAttention backward {lib}; launches {launches}; {card}")
-    rows.append(ssd_bwd_times(card, zamba, trained["errors"]["ssd_chunked_bwd"]))
+                     f"summed), {lib_name} {lib}; launches {launches}; {card}")
+    rows.append(ssd_bwd_times(card, trained["zamba"], trained["errors"]["ssd_chunked_bwd"]))
     return rows
 
 
@@ -2057,6 +2299,7 @@ def ssd_bwd_times(card: str, zamba: dict, err: float) -> dict:
     from repro_torch.kernels.ssm_scan.ref import ssd_backward_ref_padded
 
     (args, kw), = zamba["ssd_calls"].values()
+    args = on_card(args)
     b, s, h, dh = args[0].shape
     n = args[1].shape[-1]
     ms = cuda_time_ms(lambda: ssd_chunked_bwd_cuda(*args, **kw), 10)
@@ -2383,7 +2626,11 @@ def main() -> None:
         say("lm", f"{arch}: prefill {r['prefill_s']:.3f} s, decode {r['decode_ms']:.2f} ms a step, "
                   f"peak {r['peak_bytes'] / 2**30:.2f} GiB")
     for what, r in (("llama3.2-1b", trained["llama"]), ("gemma2-27b (2 layers)", trained["gemma"]),
-                    ("zamba2-2.7b", trained["zamba"])):
+                    ("zamba2-2.7b", trained["zamba"]),
+                    ("phi3.5-moe-42b-a6.6b (2 layers)", trained["phi"]),
+                    ("kimi-k2-1t-a32b (2 layers, 32 experts)", trained["kimi"]),
+                    ("pixtral-12b (8 layers)", trained["pixtral"]),
+                    ("whisper-small", trained["whisper"]), ("xlstm-125m", trained["xlstm"])):
         say("train", f"{what}: {r['tokens_per_s']:.0f} tokens/s, seconds a step "
                      + ", ".join(f"{x:.3f}" for x in r["secs"]) + ", losses "
                      + ", ".join(f"{x:.4f}" for x in r["losses"])

@@ -2,7 +2,8 @@
 the forward with its logsumexp, and the flash backward's formula.
 
 Materializes the full (Sq, Skv) logits -- use only at test shapes, or one
-kv-head group at a time at served shapes.
+kv-head group at a time at served shapes.  Computes in f32, or in f64 for
+f64 inputs (an exact yardstick for the f32 versions and the kernels).
 """
 
 from __future__ import annotations
@@ -11,6 +12,10 @@ import torch
 
 
 NEG_INF = -1e30  # masked logits, as the JAX backward (``ops._NEG_INF``) writes them
+
+
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
 def _mask(sq: int, skv: int, causal: bool, window: int, device, q_offset: int = 0) -> torch.Tensor:
@@ -31,8 +36,9 @@ def _logits(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int, softcap
     against its kv head, -inf where masked."""
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
-    qg = q.reshape(b, sq, kh, h // kh, hd).to(torch.float32) * hd**-0.5
-    logits = torch.einsum("bqhgk,bshk->bhgqs", qg, k.to(torch.float32))
+    ct = _compute_dtype(q)
+    qg = q.reshape(b, sq, kh, h // kh, hd).to(ct) * hd**-0.5
+    logits = torch.einsum("bqhgk,bshk->bhgqs", qg, k.to(ct))
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     return logits.masked_fill(~_mask(sq, skv, causal, window, q.device, q_offset),
@@ -41,7 +47,7 @@ def _logits(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int, softcap
 
 def _weighted(w: torch.Tensor, v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """(B, Sq, H, hd) in ``dtype``: the weights (B, KH, G, Sq, Skv) times v."""
-    o = torch.einsum("bhgqs,bshk->bqhgk", w, v.to(torch.float32))
+    o = torch.einsum("bhgqs,bshk->bqhgk", w, v.to(w.dtype))
     b, sq, kh, g, hd = o.shape
     return o.reshape(b, sq, kh * g, hd).to(dtype)
 
@@ -91,8 +97,9 @@ def flash_backward_ref(
     window: int = 0,
     softcap: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) in f32: the JAX package's ``_bwd_block`` written densely
-    (``src/repro/kernels/flash_attention/ops.py``), not obtained by autograd.
+    """(dq, dk, dv) in f32 (f64 for f64 q): the JAX package's ``_bwd_block``
+    written densely (``src/repro/kernels/flash_attention/ops.py``), not
+    obtained by autograd.
 
     s = q.k scale, capped c tanh(s / c), masked to -1e30; p = exp(capped -
     lse); D = rowsum(o do); ds = p (dp - D) (1 - (capped / c)^2); dk and dv
@@ -103,10 +110,10 @@ def flash_backward_ref(
     skv, kh = k.shape[1], k.shape[2]
     g = h // kh
     scale = hd**-0.5
-    f32 = torch.float32
-    qg = q.reshape(b, sq, kh, g, hd).to(f32)
-    dog = do.reshape(b, sq, kh, g, hd).to(f32)
-    kf, vf = k.to(f32), v.to(f32)
+    ct = _compute_dtype(q)
+    qg = q.reshape(b, sq, kh, g, hd).to(ct)
+    dog = do.reshape(b, sq, kh, g, hd).to(ct)
+    kf, vf = k.to(ct), v.to(ct)
     s = torch.einsum("bqhgd,bshd->bhgqs", qg, kf) * scale
     if softcap > 0:
         capped = softcap * torch.tanh(s / softcap)
@@ -114,9 +121,9 @@ def flash_backward_ref(
     else:
         capped, dcap = s, None
     capped = capped.masked_fill(~_mask(sq, skv, causal, window, q.device), NEG_INF)
-    p = torch.exp(capped - lse.reshape(b, kh, g, sq)[..., None].to(f32))
+    p = torch.exp(capped - lse.reshape(b, kh, g, sq)[..., None].to(ct))
     dp = torch.einsum("bqhgd,bshd->bhgqs", dog, vf)
-    d = (o.to(f32) * do.to(f32)).sum(-1).reshape(b, sq, kh, g).permute(0, 2, 3, 1)
+    d = (o.to(ct) * do.to(ct)).sum(-1).reshape(b, sq, kh, g).permute(0, 2, 3, 1)
     ds = p * (dp - d[..., None])
     if dcap is not None:
         ds = ds * dcap

@@ -91,9 +91,27 @@ def _const(v: float, x: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=x.dtype, device=x.device)
 
 
+class _Logistic(torch.autograd.Function):
+    """``lax.logistic``: the forward as XLA expands it, 1 / (1 + exp(-x)),
+    rounded op by op; the backward as its JVP, g * (s * (1 - s)).  Autograd
+    through the expansion would give 0 * inf = NaN wherever exp(-x)
+    overflows (x below -88 in f32 and bf16), where the JAX gradient is 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """``lax.logistic`` as XLA expands it: 1 / (1 + exp(-x))."""
-    return 1.0 / (1.0 + torch.exp(-x))
+    """``lax.logistic`` (see ``_Logistic``)."""
+    return _Logistic.apply(x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

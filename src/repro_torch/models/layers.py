@@ -5,9 +5,10 @@ dtypes.  Attention comes in two execution strategies here:
   * ``attention_full``   -- materializes (.., Sq, Skv) logits; used for
     sequences shorter than ``attend``'s threshold.
   * ``attention_decode`` -- one-token query against a KV cache.
-``attend`` sends sequences of 2048 tokens or more to the port's
+``attend`` sends self-attention of 2048 tokens or more to the port's
 ``flash_attention`` op: the hand-written CUDA kernel for CUDA tensors (bf16
 q, k, v upcast to f32 for it, exactly), ``attention_ref`` on the CPU.
+Cross-length shapes take ``attention_full`` on both devices.
 
 All softmax math is fp32; params/activations are bf16 (or f32 throughout).
 """
@@ -219,11 +220,15 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, spec: AttnSpec, *,
            chunk_threshold: int = 2048) -> torch.Tensor:
-    """Dispatch: full attention for short sequences, the flash op for long.
+    """Dispatch: full attention for short sequences, the flash op for long
+    self-attention.
 
-    On CUDA the flash kernel takes self-attention only: cross-attention of
-    ``chunk_threshold`` tokens or more with Sq != Skv raises there."""
-    if q.shape[1] >= chunk_threshold:
+    The flash kernel takes Sq == Skv only, as the JAX package's Pallas
+    kernel does; cross-length shapes (whisper's decoder against an encoder
+    of another length) take ``attention_full`` on every device, as the JAX
+    op sends them to its dense reference when no block divides both
+    lengths.  Its (B, H, Sq, Skv) f32 logits are the memory that costs."""
+    if q.shape[1] >= chunk_threshold and q.shape[1] == k.shape[1]:
         return flash_attention(q, k, v, causal=spec.causal, window=spec.window,
                                softcap=spec.softcap)
     return attention_full(q, k, v, spec)

@@ -40,7 +40,8 @@ def route(cfg, p: dict, x: torch.Tensor):
 
     Returns (probs (..., E) f32, top_p (..., k) f32, top_e (..., k) int64).
     Top-k probabilities are renormalized (Mixtral-style)."""
-    logits = x.float() @ p["router"]
+    # f32 whatever the router's dtype, as the JAX package's einsum promotes
+    logits = x.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, cfg.experts_per_token, dim=-1, sorted=True)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)

@@ -105,7 +105,11 @@ def mlstm_forward(cfg, p: dict, x: torch.Tensor, *, chunk: int = MLSTM_CHUNK) ->
     for c in range(nc):
         qk, kk, vk, lik, cumk = qc[:, c], kc[:, c], vc[:, c], lic[:, c], cumf[:, c]
         ldiff = cumk[:, :, None, :] - cumk[:, None, :, :] + lik[:, None, :, :]
-        lmat = torch.exp(ldiff).masked_fill(upper[None, :, :, None], 0.0)  # (B,Q,S,H)
+        # masked before exp: above the diagonal ldiff grows with the decay
+        # over the chunk and overflows once it passes 88, and a mask after
+        # exp would then multiply 0 by inf in the backward (the JAX package
+        # masks after exp: its gradient is NaN there, its values the same)
+        lmat = torch.exp(ldiff.masked_fill(upper[None, :, :, None], float("-inf")))  # (B,Q,S,H)
         gqk = torch.einsum("bthn,bshn->btsh", qk, kk)  # (B,Q,S,H)
         y_intra = torch.einsum("btsh,bshd->bthd", gqk * lmat, vk)
         decay_in = torch.exp(cumk)  # (B,Q,H)

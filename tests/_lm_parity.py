@@ -28,6 +28,7 @@ Tolerances, as fractions of max|ref|:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import jax
@@ -60,6 +61,21 @@ MOE = ["phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b"]
 RECURRENT = ["xlstm-125m", "zamba2-2.7b"]
 
 
+@contextlib.contextmanager
+def one_thread():
+    """torch on one thread inside the block.  xLSTM's sLSTM is a loop over
+    time: ~1e6 tiny ops a step at S = 2048, which run over 7x slower when
+    several test workers each run torch's default thread count (measured:
+    six such tests at once took over 5 min each on 8 cores, 50 s on one
+    thread each)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def f32_tol(cfg, step: str) -> float:
     return F32_TOL.get((cfg.family, step), TOL_F32)
 
@@ -70,8 +86,10 @@ def configs(name: str, **kw):
             tconfigs.reduced(tconfigs.ARCHS[name], **kw))
 
 
-def jax_params(cfg, *, f32: bool, seed: int = 0):
-    p = jlm.init_params(cfg, jax.random.PRNGKey(seed), max_pos=MAX_POS)
+def jax_params(cfg, *, f32: bool, seed: int = 0, max_pos: int = MAX_POS):
+    """The JAX package's init params; ``max_pos`` learned positions (whisper)
+    must cover the longest sequence a check runs."""
+    p = jlm.init_params(cfg, jax.random.PRNGKey(seed), max_pos=max_pos)
     if f32:
         p = jax.tree.map(lambda a: a.astype(jnp.float32)
                          if jnp.issubdtype(a.dtype, jnp.floating) else a, p)
@@ -82,8 +100,8 @@ def to_numpy(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def both_params(jcfg, *, f32: bool):
-    jp = jax_params(jcfg, f32=f32)
+def both_params(jcfg, *, f32: bool, max_pos: int = MAX_POS):
+    jp = jax_params(jcfg, f32=f32, max_pos=max_pos)
     return jp, params_from_numpy(to_numpy(jp), "cpu")
 
 

@@ -100,3 +100,38 @@ def test_no_grad_serving_path_keeps_attention_ref():
     assert o.dtype == torch.bfloat16 and o.grad_fn is not None
     o.float().sum().backward()
     assert all(t.grad.dtype == torch.bfloat16 for t in (qb, kb, vb))
+
+
+@pytest.mark.parametrize("causal,softcap", [(False, 0.0), (True, 50.0)], ids=["cross", "causal"])
+def test_cross_length_attend_takes_the_plain_path(causal, softcap, monkeypatch):
+    """``layers.attend`` at Sq = 2048 against Skv = 1500 (whisper's decoder
+    over an encoder of another length): the output and the gradients in q,
+    k, v match the JAX package's ``layers.attend`` within 1e-4 of max|ref|,
+    and the flash op is never called, since its kernel takes Sq == Skv only
+    (the JAX op sends these shapes to its dense reference).  Self-attention
+    of the same length still takes the flash op."""
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers as tlayers
+
+    q, k, v = _inputs(1, 2048, 1500, 4, 2, 16, 5)
+    w = np.random.default_rng(6).standard_normal(q.shape, dtype=np.float32)
+    jspec = jlayers.AttnSpec(causal=causal, softcap=softcap)
+    tspec = tlayers.AttnSpec(causal=causal, softcap=softcap)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want_o = jlayers.attend(jq, jk, jv, jspec)
+    want_g = jax.grad(lambda *a: (jlayers.attend(*a, jspec) * w).sum(), argnums=(0, 1, 2))(
+        jq, jk, jv)
+
+    calls = []
+    op = tlayers.flash_attention
+    monkeypatch.setattr(tlayers, "flash_attention", lambda *a, **kw: calls.append(1) or op(*a, **kw))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    o = tlayers.attend(*ts, tspec)
+    (o * torch.from_numpy(w)).sum().backward()
+    assert calls == [] and o.shape == q.shape
+    assert _rel(o.detach().numpy(), want_o) <= TOL
+    for name, t, g in zip("qkv", ts, want_g):
+        err = _rel(t.grad.numpy(), g)
+        assert err <= TOL, f"d{name}: {err:.3g} of max|ref| > {TOL}"
+    tlayers.attend(*(torch.from_numpy(a) for a in _inputs(1, 2048, 2048, 4, 2, 16, 7)), tspec)
+    assert calls == [1]

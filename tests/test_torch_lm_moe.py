@@ -86,3 +86,19 @@ def test_moe_dispatch_drops_past_capacity_as_jax(group_size):
     assert np.bincount(np.asarray(je).reshape(64 // g_sz, -1)[0], minlength=4).max() > cap
     assert rel_err(ty, jy) <= TOL_F32
     assert abs(float(taux) - float(jaux)) <= 1e-6 * float(jaux)
+
+
+def test_route_promotes_a_bf16_router_as_jax():
+    """A bf16 router (a param tree cast whole to bf16) routes in f32, as the
+    JAX package's einsum promotes it: probabilities and expert choices equal
+    the JAX package's, where the port's product used to refuse the mix."""
+    jcfg, tcfg = configs("phi3.5-moe-42b-a6.6b")
+    p = jmoe.init_moe(jcfg, jax.random.PRNGKey(4))
+    p["router"] = p["router"].astype(jnp.bfloat16)
+    x = np.random.default_rng(10).standard_normal((2, 16, jcfg.d_model), dtype=np.float32)
+    jprobs, _, je = jmoe.route(jcfg, p, jnp.asarray(x, jnp.bfloat16))
+    tp = params_from_numpy(to_numpy(p), "cpu")
+    assert tp["router"].dtype == torch.bfloat16
+    tprobs, _, te = tmoe.route(tcfg, tp, torch.from_numpy(x).bfloat16())
+    assert np.array_equal(te.numpy(), np.asarray(je))
+    assert rel_err(tprobs, jprobs) <= 1e-6
