@@ -104,12 +104,15 @@ the first fault:
    every layer group rematerialized, the flash backward kernel,
    ``runtime.checkpoint``), run before phase 10 (its times come after
    phase 10's rows).  (a) The backward kernel against
-   ``flash_backward_ref`` at S=2048 (and a ragged S=1999) for each head dim
-   64-256, causal G=1, window 512 with softcap 50 at G=2, bidirectional
-   G=4: the forward's o and logsumexp (``lse=True``) within 2e-5 of
-   max|plain| against ``attention_ref_lse``, then dq, dk, dv within 2e-5 of
-   max|plain| against ``flash_backward_ref`` fed the PLAIN o and lse, so the
-   whole gradient is held to an independent reference; two runs equal.
+   ``flash_backward_ref`` at S=2048 (and a ragged S=1999, and S=1) for each
+   head dim 64-256, causal G=1, window 512 with softcap 50 at G=2,
+   bidirectional G=4, causal G=8, a window of 5 (below one kv tile): the
+   forward's o and logsumexp (``lse=True``) within 2e-5 of max|plain|
+   against ``attention_ref_lse``, then dq, dk, dv within 2e-5 of max|plain|
+   (at S=1, where dq and dk are 0 in exact math, of max|dv|) against
+   ``flash_backward_ref`` fed the PLAIN o and lse, so the whole gradient is
+   held to an independent reference; two runs equal, and the first case run
+   again after all the others (of other shapes) equal to its first run.
    (b) llama3.2-1b whole (16 layers, d=2048, 32/8 heads of 64, vocab
    128256, tied embeddings: 1.236 B params), bf16 params and f32 moments,
    at train_4k's S=4096 with its global batch of 256 cut to 16, as 2
@@ -145,12 +148,13 @@ the first fault:
    version as in (f), and one flash backward at hd 80 as in (b).  Before
    the resume check.  (e) After phase 10: the flash backward kernel timed
    on (b)'s, (c)'s and (g)'s own inputs beside its bound (10 hd FLOPs a
-   live pair at 3 TF32 passes; this design's 14 hd beside it), its plain
-   version per kv-head group summed, and FlexAttention's backward under
-   ``torch.compile`` ((forward + backward) - forward), or where its template
-   does not compile (hd 160) and there is no softcap or window,
-   ``scaled_dot_product_attention``'s (``enable_gqa``, timed the same way
-   and held to the kernel's gradients); the SSD backward
+   live pair at 3 TF32 passes; the design's 14 hd beside it), its plain
+   version per kv-head group summed, and one library call's backward
+   ((forward + backward) - forward): ``scaled_dot_product_attention``
+   (``enable_gqa``, held to the kernel's gradients; per batch row, summed,
+   where one call does not fit the card) on every row without a softcap or
+   window, FlexAttention under ``torch.compile`` on the rows with one
+   (gemma2's); the SSD backward
    (``ssd_chunked_bwd``) on (g)'s own inputs beside its bound (xs, dy, dxs
    and the small tensors once; the fewest product FLOPs of any chunking at
    3 TF32 passes), the bytes and FLOPs of its own design, and its plain
@@ -184,8 +188,9 @@ device time by kernel and the device's idle share over each serve; then the
 error budget of the split-precision kernels (each against its plain
 version, an f64 run and the model of its arithmetic in
 ``repro_torch.kernels.split_precision``, whose difference from the kernel is
-the tensor cores' own accumulation; flash, dequant_matmul and the SSD scan
-at its served shape) and a probe of ``mma.sync`` TF32
+the tensor cores' own accumulation; flash forward and backward (at hd 128,
+160 and 64), dequant_matmul and the SSD scan at its served shape) and a
+probe of ``mma.sync`` TF32
 throughput (independent m16n8k8 products from registers, no memory
 traffic): the ceiling of the route the tensor-core kernels take.
 """
@@ -350,13 +355,21 @@ def phase_accuracy(card: str) -> None:
     what the tensor cores' own accumulation adds."""
     import torch
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda,
+        flash_attention_cuda,
+    )
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_ref,
+        attention_ref_lse,
+        flash_backward_ref,
+    )
     from repro_torch.kernels.quantize.kernel import dequant_matmul_cuda
     from repro_torch.kernels.quantize.ref import dequant_matmul_ref, quantize_ref
     from repro_torch.kernels.split_precision import (
         attention_emulated,
         dequant_matmul_emulated,
+        flash_backward_emulated,
         ssd_emulated,
     )
     from repro_torch.kernels.ssm_scan.kernel import (
@@ -384,6 +397,26 @@ def phase_accuracy(card: str) -> None:
                         f"{diff(out, exact):.3g}, plain {diff(plain, exact):.3g}, model "
                         f"{diff(model, exact):.3g}; {card}")
         del q, k, v, out, plain, model, exact
+    # the backward, each gradient against max|plain|: dq, dk, dv
+    for case, (hd, std, softcap) in enumerate(((128, 1.0, 0.0), (160, 1.0, 50.0), (64, 5.0, 50.0))):
+        q, k, v, do = (randn((1, 2048, 4 if i in (0, 3) else 1, hd), 50 + 4 * case + i, std)
+                       for i in range(4))
+        kw = dict(causal=True, window=0, softcap=softcap)
+        o, lse = attention_ref_lse(q, k, v, **kw)
+        out = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        plain = flash_backward_ref(q, k, v, o, lse, do, **kw)
+        model = flash_backward_emulated(q, k, v, o, lse, do, **kw)
+        exact = [t.double() for t in (q, k, v)]
+        o64, lse64 = attention_ref_lse(*exact, **kw)
+        exact = flash_backward_ref(*exact, o64, lse64, do.double(), **kw)  # f64 throughout
+        rel = lambda a, b, w: ", ".join(  # noqa: E731
+            f"{diff(x, y) / z.abs().max().item():.3g}" for x, y, z in zip(a, b, w))
+        say("accuracy", f"flash backward (1, 2048, 4/1, {hd}) std {std}, causal, softcap {softcap}, "
+                        f"dq, dk, dv of max|plain|: kernel vs plain {rel(out, plain, plain)}; model "
+                        f"vs plain {rel(model, plain, plain)}; kernel vs model "
+                        f"{rel(out, model, plain)}; vs f64: kernel {rel(out, exact, plain)}, plain "
+                        f"{rel(plain, exact, plain)}, model {rel(model, exact, plain)}; {card}")
+        del q, k, v, do, o, lse, out, plain, model, exact, o64, lse64
     qc, sc = quantize_ref(randn((4096, 4096), 45), 256)
     w = randn((4096, 1024), 46, 0.3)
     out = dequant_matmul_cuda(qc, sc, w, dtype=torch.float32, block=256)
@@ -1599,6 +1632,10 @@ TOL_FLASH_BWD = 2e-5
 # no two f32 versions agree within TOL_FLASH_BWD.  Its dq is held to the f64
 # plain run at twice the f32 plain version's own error; dk and dv keep 2e-5
 TOL_FLASH_BWD_DQ_F64 = 2.5e-4
+# product FLOPs the backward kernels do a live (query, key) pair, in units
+# of hd: S and dP in each of the dK/dV and dQ kernels, dV, dK, dQ once (the
+# bound counts 10: each product once)
+FLASH_BWD_FLOPS_PER_HD = 14
 # of max|plain| per gradient of the SSD backward: the JAX package's gradient
 # tolerance is 1e-4; the kernel measured 6.8e-7 at worst over the sweep and
 # the zamba2 step's own inputs, so the pin is 5e-6
@@ -1618,14 +1655,17 @@ SSD_BWD_CASES = [
 def flash_bwd_cases() -> list[tuple]:
     """(b, s, h, kh, hd, causal, window, softcap): each head dim of the zoo
     causal at G=1, windowed and soft-capped at G=2, bidirectional at G=4,
-    and at a ragged S."""
+    G=8, a window of 5 (below one kv tile), at a ragged S and at S=1."""
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 
     return [case for hd in HEAD_DIMS for case in (
         (1, 2048, 2, 2, hd, True, 0, 0.0),
         (2, 2048, 4, 2, hd, True, 512, 50.0),
         (1, 2048, 8, 2, hd, False, 0, 0.0),
-        (1, 1999, 4, 2, hd, True, 0, 50.0))]
+        (1, 2048, 8, 1, hd, True, 0, 0.0),
+        (1, 2048, 4, 2, hd, True, 5, 0.0),
+        (1, 1999, 4, 2, hd, True, 0, 50.0),
+        (2, 1, 4, 2, hd, True, 0, 0.0))]
 
 
 def kv_groups(q, k):
@@ -1711,10 +1751,12 @@ def flash_bwd_parity(card: str) -> float:
 
     worst, worst_fwd = 0.0, 0.0
     cases = flash_bwd_cases()
+    inputs = lambda n, b, s, h, kh, hd: (  # noqa: E731
+        *(randn((b, s, heads, hd), 80 + 4 * n + i) for i, heads in enumerate((h, kh, kh))),
+        randn((b, s, h, hd), 83 + 4 * n))
+    first = None
     for n, (b, s, h, kh, hd, causal, window, softcap) in enumerate(cases):
-        q, k, v = (randn((b, s, heads, hd), 80 + 4 * n + i)
-                   for i, heads in enumerate((h, kh, kh)))
-        do = randn((b, s, h, hd), 83 + 4 * n)
+        q, k, v, do = inputs(n, b, s, h, kh, hd)
         kw = dict(causal=causal, window=window, softcap=softcap)
         o, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
         o_ref, lse_ref, o_rel, lse_rel = plain_residuals(q, k, v, o, lse, kw, (b, s, h, kh, hd))
@@ -1723,19 +1765,36 @@ def flash_bwd_parity(card: str) -> float:
         again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
         want = flash_backward_ref(q, k, v, o_ref, lse_ref, do, **kw)
         torch.cuda.synchronize()
-        rel = [((a - w).abs().max() / w.abs().max()).item() for a, w in zip(got, want)]
+        # at S=1 dq and dk are 0 in exact math (their plain values rounding
+        # noise): held against max|dv| there
+        floor = want[2].abs().max().item() if s == 1 else 0.0
+        rel = [((a - w).abs().max() / max(w.abs().max().item(), floor)).item()
+               for a, w in zip(got, want)]
         if not all(torch.equal(a, c) for a, c in zip(got, again)):
             fail(f"flash backward {(b, s, h, kh, hd)} {kw}: two runs differ")
         if not max(rel) <= TOL_FLASH_BWD:
             fail(f"flash backward {(b, s, h, kh, hd)} {kw}: dq, dk, dv "
                  f"{', '.join(f'{e:.3g}' for e in rel)} of max|plain| > {TOL_FLASH_BWD}")
         worst = max(worst, *rel)
+        if first is None:
+            first = (o, lse, got)
+    # the first case once more after calls of other shapes: each call's
+    # zeroed counters are its own, nothing stale carries over
+    b, s, h, kh, hd, causal, window, softcap = cases[0]
+    q, k, v, do = inputs(0, b, s, h, kh, hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse, got = first
+    if not all(torch.equal(a, c) for a, c in
+               zip(got, flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw))):
+        fail(f"flash backward {cases[0]}: a call after {len(cases) - 1} calls of other shapes "
+             f"differs from the first")
     say("train", f"flash forward with lse and backward kernel vs plain, {len(cases)} cases (hd "
-                 f"64-256; causal G=1, window 512 + softcap 50 G=2, bidirectional G=4, ragged "
-                 f"S=1999; S=2048): o and lse worst {worst_fwd:.3g} of max|plain| against "
-                 f"attention_ref_lse (pin {TOL_FLASH}); dq, dk, dv worst {worst:.3g} of max|plain| "
-                 f"against flash_backward_ref fed the plain o and lse (pin {TOL_FLASH_BWD}), every "
-                 f"case deterministic (two runs equal)")
+                 f"64-256; causal G=1, window 512 + softcap 50 G=2, bidirectional G=4, causal "
+                 f"G=8, window 5, ragged S=1999, S=1; S=2048): o and lse worst {worst_fwd:.3g} of "
+                 f"max|plain| against attention_ref_lse (pin {TOL_FLASH}); dq, dk, dv worst "
+                 f"{worst:.3g} of max|plain| (at S=1 of max|dv|) against flash_backward_ref fed "
+                 f"the plain o and lse (pin {TOL_FLASH_BWD}), every case deterministic (two runs "
+                 f"equal), the first case equal again after the {len(cases) - 1} others")
     return worst
 
 
@@ -2208,38 +2267,57 @@ def train_times(card: str, trained: dict) -> list[dict]:
             live = s * s * b * h
         nbytes = (4 * q.numel() + 4 * k.numel() + lse.numel()) * 4  # q o dO dq, k v dk dv, lse
         b_ms, b_by, fma_ms = bound_ms(nbytes, 10 * hd * live, F32_PRODUCT_S_PER_FLOP)
-        design_ms = bound_ms(nbytes, 14 * hd * live, F32_PRODUCT_S_PER_FLOP)[0]
+        design_ms = bound_ms(nbytes, FLASH_BWD_FLOPS_PER_HD * hd * live,
+                             F32_PRODUCT_S_PER_FLOP)[0]
         library, lib_name = None, "FlexAttention backward"
-        t0 = time.perf_counter()
-        try:  # a yardstick only: its failure is reported, never timed
-            fwd, fwd_bwd = flex_backward_yardstick(q, k, v, do, w, kw["softcap"], causal)
-            fwd_bwd()
-            torch.cuda.synchronize()
-            library = cuda_time_ms(fwd_bwd, 3) - cuda_time_ms(fwd, 3)
-            say("train", f"{name}: FlexAttention backward compiled and run in "
-                         f"{time.perf_counter() - t0:.1f} s")
-            del fwd, fwd_bwd
-        except Exception as e:  # noqa: BLE001
-            say("train", f"{name}: FlexAttention backward yardstick FAILED ({type(e).__name__}: "
-                         f"{str(e)[:300]})")
-            torch.cuda.empty_cache()
-        if library is None and kw["softcap"] == 0 and w <= 0:
-            lib_name = "scaled_dot_product_attention backward"
-            try:
-                fwd, fwd_bwd = sdpa_backward_yardstick(q, k, v, do, causal)
-                got = [g.transpose(1, 2) for g in fwd_bwd()]
-                want = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
-                agree = max(((g - x).abs().max() / x.abs().max()).item()
-                            for g, x in zip(got, want))
-                del got, want
+        plain_attention = kw["softcap"] == 0 and w <= 0
+        if not plain_attention:  # FlexAttention is the one call that takes softcap and window
+            t0 = time.perf_counter()
+            try:  # a yardstick only: its failure is reported, never timed
+                fwd, fwd_bwd = flex_backward_yardstick(q, k, v, do, w, kw["softcap"], causal)
+                fwd_bwd()
+                torch.cuda.synchronize()
                 library = cuda_time_ms(fwd_bwd, 3) - cuda_time_ms(fwd, 3)
-                say("train", f"{name}: scaled_dot_product_attention(is_causal={causal}, "
-                             f"enable_gqa=True) under autograd as the yardstick; its dq, dk, dv "
-                             f"agree with the kernel's within {agree:.3g} of max|kernel|")
+                say("train", f"{name}: FlexAttention backward compiled and run in "
+                             f"{time.perf_counter() - t0:.1f} s")
                 del fwd, fwd_bwd
             except Exception as e:  # noqa: BLE001
-                say("train", f"{name}: scaled_dot_product_attention yardstick FAILED "
+                say("train", f"{name}: FlexAttention backward yardstick FAILED "
                              f"({type(e).__name__}: {str(e)[:300]})")
+                torch.cuda.empty_cache()
+        else:
+            lib_name = "scaled_dot_product_attention backward"
+            want = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+            for rows_a_call in (b, 1):  # one call; per batch row where one does not fit
+                library, agree, oom = 0.0, 0.0, None
+                try:
+                    for r0 in range(0, b, rows_a_call):
+                        sl = slice(r0, r0 + rows_a_call)
+                        fwd, fwd_bwd = sdpa_backward_yardstick(q[sl], k[sl], v[sl], do[sl], causal)
+                        got = [g.transpose(1, 2) for g in fwd_bwd()]
+                        agree = max(agree, *(((g - x[sl]).abs().max() / x.abs().max()).item()
+                                             for g, x in zip(got, want)))
+                        library += cuda_time_ms(fwd_bwd, 3) - cuda_time_ms(fwd, 3)
+                except torch.cuda.OutOfMemoryError as e:
+                    oom = str(e)[:120]
+                except Exception as e:  # noqa: BLE001
+                    library = None
+                    say("train", f"{name}: scaled_dot_product_attention yardstick FAILED "
+                                 f"({type(e).__name__}: {str(e)[:300]})")
+                    break
+                fwd = fwd_bwd = got = None
+                torch.cuda.empty_cache()
+                if oom is None:
+                    how = "one call" if rows_a_call == b else f"{b} calls of one batch row, summed"
+                    say("train", f"{name}: scaled_dot_product_attention(is_causal={causal}, "
+                                 f"enable_gqa=True) under autograd as the yardstick ({how}); its "
+                                 f"dq, dk, dv agree with the kernel's within {agree:.3g} of "
+                                 f"max|kernel|")
+                    break
+                library = None
+                say("train", f"{name}: scaled_dot_product_attention over {rows_a_call} batch "
+                             f"rows does not fit the card ({oom})")
+            del want
         if library is None:
             say("train", f"{name}: library_ms null")
         del q, k, v, o, lse, do
@@ -2253,9 +2331,10 @@ def train_times(card: str, trained: dict) -> list[dict]:
         lib = "null" if library is None else f"{library:.4f} ms"
         say("times", f"{name} ({b}, {s}, {h}, {kvh}, {hd}, {label}): {ms:.4f} ms, bound "
                      f"{b_ms:.4f} ms ({b_by}: 10 hd FLOPs a live pair at 3 TF32 passes; "
-                     f"{b_ms / ms:.1%} of it; this design's 14 hd {design_ms:.4f} ms; f32 FMA "
-                     f"bound {fma_ms:.4f} ms), plain {plain_ms:.4f} ms (per kv-head group, "
-                     f"summed), {lib_name} {lib}; launches {launches}; {card}")
+                     f"{b_ms / ms:.1%} of it; this design does {FLASH_BWD_FLOPS_PER_HD} hd a "
+                     f"live pair, bound {design_ms:.4f} ms; f32 FMA bound {fma_ms:.4f} ms), "
+                     f"plain {plain_ms:.4f} ms (per kv-head group, summed), {lib_name} {lib}; "
+                     f"launches {launches}; {card}")
     rows.append(ssd_bwd_times(card, trained["zamba"], trained["errors"]["ssd_chunked_bwd"]))
     return rows
 

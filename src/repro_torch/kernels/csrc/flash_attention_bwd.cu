@@ -12,34 +12,50 @@
 // residuals are kept (o and lse); the probabilities are recomputed tile by
 // tile and never leave the block.
 //
-// What bounds it on an H100, and what the design does about it: 8 hd
-// operations per live (query, key) pair for dK/dV (S^T, dP^T, dV, dK) and
-// 6 hd for dQ (S and dP again, then dQ), against reading q, k, v, o, dO and
-// writing dq, dk, dv once: bound by operations by two orders of magnitude,
-// at three TF32 tensor-core passes per product under split precision.
-//
-// Three kernels, no atomics (so the gradients are deterministic, as the
-// bit-exact resume check needs; the JAX backward adds dq in a fixed order
-// too):
+// What bounds it on an H100: 10 hd operations per live (query, key) pair
+// (S, dP, dV, dK, dQ) against reading q, k, v, o, dO and writing dq, dk, dv
+// once -- bound by operations by two orders of magnitude, at three TF32
+// tensor-core passes per product under split precision.  This design does
+// 14 hd: S and dP twice, once in each of its two kernels, so that dq needs
+// no adds across blocks.  A one-pass design (dq summed by the kv-tile blocks
+// in a fixed order through per-slice counters in global memory) was built and
+// measured on the card: each step's ordered read-add-write of a dq tile in
+// L2 cost more than recomputing S and dP (PERF.md, section 6).
 //   (a) flash_bwd_dsum_kernel: D = rowsum(o dO), one warp a (b, s, h) row,
 //       into a (B, H, S) scratch beside lse;
-//   (b) flash_bwd_dkdv_kernel: a block owns 64 keys of one kv head (16 a
-//       warp) and loops over the G query heads and the 32-query tiles the
-//       causal and window masks leave alive, keeping its dK and dV tiles in
-//       mma fragments in registers;
-//   (c) flash_bwd_dq_kernel: a block owns 64 queries of one head (16 a warp)
-//       and loops over the live 32-key tiles, recomputing s and dp.
+//   (b) flash_bwd_dkdv_kernel: a block owns BR keys of one kv head and walks
+//       the 32-query tiles the causal and window masks leave alive, from the
+//       last down, and within each the G query heads; it takes S^T and dP^T
+//       and adds P^T dO and dS^T Q into dV and dK, kept in mma fragments in
+//       registers;
+//   (c) flash_bwd_dq_kernel: a block owns BR queries of one head and walks
+//       the live 32-key tiles, taking S and dP and adding dS K into dQ.
+// What the design does about its bound:
+//   - hd 160 and 256 without recomputing S and dP: there two warps share 16
+//     rows, each owning half of the hd columns of the accumulators (the
+//     registers a warp has would not hold all of them); each takes S and dP
+//     over its half of hd and the pair adds the halves through shared
+//     memory.
+//   - Copies overlap products: the streamed tiles (q, dO, lse and D in (b);
+//     k and v in (c)) go through a two-stage cp.async ring, tile n + 1 in
+//     flight while tile n is used; rows past S are zero-filled and masked.
+//   - Splits: at hd 64 the kernels are bound by the instructions that split
+//     operands, not by the tensor cores.  An A fragment is split once per
+//     warp and reused across the fragment's n tiles.  S's operands are split
+//     rounded on the f32 pipe (split_fp: four f32 instructions, not four
+//     integer and one f32); the other four products' are truncated
+//     (split_trunc: two instructions), whose larger error S alone would pass
+//     through exp.  Staging tiles split in shared memory would double the
+//     ring and the resident tiles, which at 128 rows and hd 128 already fill
+//     the 227 KB.
+//   - Occupancy: tiles by head dim (Cfg) so that hd 64 runs three blocks of
+//     4 warps an SM, hd 80 two, hd 112-256 one block of 8 or 4 warps.
 // Each product sums at most 12 mma steps in a fresh fragment before it is
 // added in f32 (a 32-wide slice of hd for S and dP, one 32-row tile for the
-// accumulations), and starts with __syncwarp().  Tiles are loaded by 16-byte
-// cp.async (ragged rows zero-filled), single-buffered: two or more blocks
-// an SM overlap one block's loads with another's products.  At hd > 128 the
-// dK/dV and dQ accumulators would pass the register file, so each block
-// writes half of the output columns (grid z = 2) and recomputes S and dP for
-// its half.  Masking runs on every element; rows past S are masked, not
-// padded.  q, k, v may be strided views of a fused projection (rows at the
-// batch and sequence strides given, each row's (heads, hd) block packed and
-// 16-byte aligned); o, dO, dq, dk, dv are contiguous.
+// accumulations) and starts with __syncwarp().  No atomics: two runs give
+// equal gradients.  q, k, v may be strided views of a fused projection (rows
+// at the batch and sequence strides given, each row's (heads, hd) block
+// packed and 16-byte aligned); o, dO, dq, dk, dv are contiguous.
 
 #include <cuda_runtime.h>
 
@@ -48,34 +64,54 @@
 namespace {
 
 using split_tf32::cp_async16;
+using split_tf32::cp_async4;
 using split_tf32::cp_async_commit;
 using split_tf32::cp_async_wait;
 using split_tf32::mma;
-using split_tf32::split;
 
-constexpr int NW = 4, NT = NW * 32;  // 4 warps a block
-constexpr int BR = 16 * NW;          // rows a block owns: keys in (b), queries in (c)
-constexpr int BC = 32;               // rows of the tiles a block steps over
-constexpr int NCT = BC / 8;          // 8-wide column fragments of an S tile
-
-template <int HD>
-struct Dims {
-  static constexpr int LD = HD + 8;                   // row stride of every shared tile
-  static constexpr int DC = HD <= 128 ? HD : HD / 2;  // output columns a block writes
-  static constexpr int NZ = HD / DC;
-  static constexpr int NDT = DC / 8;
-};
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)(2 * BR + 2 * BC) * Dims<HD>::LD + 2 * BC);
+// S's operands split rounded (split_fp), every other product's truncated
+// (split_trunc, two instructions): S's error passes through exp, the
+// others' do not (kernels/split_precision.flash_backward_emulated)
+template <bool ROUND>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (ROUND)
+    split_tf32::split_fp(x, hi, lo);
+  else
+    split_tf32::split_trunc(x, hi, lo);
 }
 
+constexpr int BC = 32;       // rows of the tiles a block streams: queries in (b), keys in (c)
+constexpr int NCT = BC / 8;  // 8-wide column fragments of an S tile
+
+// Tiles by head dim: KS warps share 16 rows (2 above hd 128, each owning
+// half of the accumulators' columns), NKG such groups a block; the block
+// owns BR = 16 NKG rows (keys in (b), queries in (c)).  hd 64 runs three
+// blocks of 4 warps an SM, hd 80 two, hd 112-160 one of 8 warps, hd 256 one
+// of 4 warps over 32 rows, what its tiles leave room for.  Keep BWD_ROWS in
+// ../flash_attention/kernel.py equal to BR.
+template <int HD>
+struct Cfg {
+  static constexpr int KS = HD > 128 ? 2 : 1;
+  static constexpr int NKG = HD <= 80 ? 4 : HD <= 128 ? 8 : HD == 160 ? 4 : 2;
+  static constexpr int NW = NKG * KS, NT = NW * 32;
+  static constexpr int BR = 16 * NKG;
+  static constexpr int LD = HD + 8;   // row stride of every q, dO, k, v tile
+  static constexpr int DW = HD / KS;  // accumulator columns a warp owns
+  static constexpr int NDT = DW / 8;
+  static constexpr int XCH = KS == 2 ? NW * 2 * NCT * 4 * 32 : 0;  // S, dP halves
+  // (b): k, v [BR][LD]; 2 stages of q, dO [BC][LD] and lse, D [BC]
+  static constexpr size_t SMEM_DKDV =
+      sizeof(float) * (2 * BR * LD + 2 * (2 * BC * LD + 2 * BC) + XCH);
+  // (c): q, dO [BR][LD]; 2 stages of k, v [BC][LD]
+  static constexpr size_t SMEM_DQ = sizeof(float) * (2 * BR * LD + 2 * 2 * BC * LD + XCH);
+  static constexpr int MINB = HD == 64 ? 3 : HD == 80 ? 2 : 1;
+};
+
 // rows [lo, lo + ROWS) of one head, at row stride ss, into a tile of stride LD
-template <int HD, int ROWS>
+template <int HD, int ROWS, int NT>
 __device__ __forceinline__ void load_rows(float* dst, const float* src, long long ss, int lo,
                                           int S, int tid) {
-  constexpr int CH = HD / 4, LD = Dims<HD>::LD;  // 16-byte chunks a row
+  constexpr int CH = HD / 4, LD = HD + 8;  // 16-byte chunks a row
 #pragma unroll 4
   for (int e = tid; e < ROWS * CH; e += NT) {
     const int r = e / CH, c = (e % CH) * 4, p = lo + r;
@@ -84,11 +120,11 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, long lon
   }
 }
 
-// acc (16 x BC) += A B^T over hd columns [kc, kc + W): arow points at this
+// acc (16 x BC) += A B^T over columns [kc, kc + W): arow points at this
 // lane's A row g (column 2t), brow at B row g (column 2t); rows g + 8 of A
 // and rows 8 nt + g of B follow at the tile stride.  3 split-TF32 mma per 8
 // columns into a fresh fragment, W / 8 * 3 <= 12 steps, then added in f32.
-template <int LD, int W>
+template <int LD, int W, bool ROUND>
 __device__ __forceinline__ void dot_slice(float (&acc)[NCT][4], const float* arow,
                                           const float* brow, int kc) {
   float part[NCT][4] = {};
@@ -98,16 +134,16 @@ __device__ __forceinline__ void dot_slice(float (&acc)[NCT][4], const float* aro
     const float2 x0 = *reinterpret_cast<const float2*>(arow + kk);
     const float2 x1 = *reinterpret_cast<const float2*>(arow + 8 * LD + kk);
     uint32_t ah[4], al[4];
-    split(x0.x, ah[0], al[0]);
-    split(x1.x, ah[1], al[1]);
-    split(x0.y, ah[2], al[2]);
-    split(x1.y, ah[3], al[3]);
+    split<ROUND>(x0.x, ah[0], al[0]);
+    split<ROUND>(x1.x, ah[1], al[1]);
+    split<ROUND>(x0.y, ah[2], al[2]);
+    split<ROUND>(x1.y, ah[3], al[3]);
 #pragma unroll
     for (int nt = 0; nt < NCT; ++nt) {
       const float2 y = *reinterpret_cast<const float2*>(brow + nt * 8 * LD + kk);
       uint32_t bh0, bl0, bh1, bl1;
-      split(y.x, bh0, bl0);
-      split(y.y, bh1, bl1);
+      split<ROUND>(y.x, bh0, bl0);
+      split<ROUND>(y.y, bh1, bl1);
       mma(part[nt], al, bh0, bh1);
       mma(part[nt], ah, bl0, bl1);
       mma(part[nt], ah, bh0, bh1);
@@ -119,36 +155,36 @@ __device__ __forceinline__ void dot_slice(float (&acc)[NCT][4], const float* aro
     for (int e = 0; e < 4; ++e) acc[nt][e] += part[nt][e];
 }
 
-// acc = A B^T over all of hd (a head dim that is not a multiple of 32 ends
-// in one 16-wide slice)
-template <int HD>
+// acc = A B^T over W columns (a width that is not a multiple of 32 ends in
+// one 16-wide slice)
+template <int LD, int W, bool ROUND>
 __device__ __forceinline__ void dot_rows(float (&acc)[NCT][4], const float* arow,
                                          const float* brow) {
-  constexpr int LD = Dims<HD>::LD;
 #pragma unroll
   for (int nt = 0; nt < NCT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
 #pragma unroll 1
-  for (int kc = 0; kc < HD - HD % 32; kc += 32) dot_slice<LD, 32>(acc, arow, brow, kc);
-  if constexpr (HD % 32 != 0) dot_slice<LD, HD % 32>(acc, arow, brow, HD - HD % 32);
+  for (int kc = 0; kc < W - W % 32; kc += 32) dot_slice<LD, 32, ROUND>(acc, arow, brow, kc);
+  if constexpr (W % 32 != 0) dot_slice<LD, W % 32, ROUND>(acc, arow, brow, W - W % 32);
 }
 
-// a C fragment (16 x BC) split into hi + lo A fragments: column t is key
-// 2t, column t + 4 key 2t + 1, so a = (c0, c2, c1, c3) with no shuffles
+// a C fragment (16 x BC) split into hi + lo A fragments: column t is the
+// tile's column 2t, column t + 4 its 2t + 1, so a = (c0, c2, c1, c3) with
+// no shuffles
 __device__ __forceinline__ void to_frag(const float (&c)[NCT][4], uint32_t (&h)[NCT][4],
                                         uint32_t (&l)[NCT][4]) {
 #pragma unroll
   for (int kt = 0; kt < NCT; ++kt) {
-    split(c[kt][0], h[kt][0], l[kt][0]);
-    split(c[kt][2], h[kt][1], l[kt][1]);
-    split(c[kt][1], h[kt][2], l[kt][2]);
-    split(c[kt][3], h[kt][3], l[kt][3]);
+    split<false>(c[kt][0], h[kt][0], l[kt][0]);
+    split<false>(c[kt][2], h[kt][1], l[kt][1]);
+    split<false>(c[kt][1], h[kt][2], l[kt][2]);
+    split<false>(c[kt][3], h[kt][3], l[kt][3]);
   }
 }
 
-// out (16 x DC) += P (16 x BC) B (BC x DC): bcol points at B row 2t, output
-// column g of this block's first column.  Each 8-column fragment sums one
+// out (16 x 8 NDT) += P (16 x BC) B (BC x 8 NDT): bcol points at B row 2t,
+// this warp's first output column + g.  Each 8-column fragment sums one
 // tile's 4 x 3 = 12 mma steps fresh, then is added in f32.
 template <int NDT, int LD>
 __device__ __forceinline__ void acc_pb(float (&out)[NDT][4], const uint32_t (&ph)[NCT][4],
@@ -160,14 +196,41 @@ __device__ __forceinline__ void acc_pb(float (&out)[NDT][4], const uint32_t (&ph
 #pragma unroll
     for (int kt = 0; kt < NCT; ++kt) {
       uint32_t bh0, bl0, bh1, bl1;
-      split(bcol[kt * 8 * LD + dt * 8], bh0, bl0);
-      split(bcol[(kt * 8 + 1) * LD + dt * 8], bh1, bl1);
+      split<false>(bcol[kt * 8 * LD + dt * 8], bh0, bl0);
+      split<false>(bcol[(kt * 8 + 1) * LD + dt * 8], bh1, bl1);
       mma(part, pl[kt], bh0, bh1);
       mma(part, ph[kt], bl0, bl1);
       mma(part, ph[kt], bh0, bh1);
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) out[dt][e] += part[e];
+  }
+}
+
+// with two warps on 16 rows (KS = 2), each holds S and dP over its half of
+// hd: the pair adds the halves through shared memory (both then hold the
+// same sums, a + b and b + a being equal in f32).  Every thread calls it.
+template <int KS>
+__device__ __forceinline__ void add_halves(float (&sp)[NCT][4], float (&dp)[NCT][4], float* Xs,
+                                           int warp, int lane) {
+  if constexpr (KS == 2) {
+    float* mine = Xs + warp * (2 * NCT * 4 * 32) + lane;
+    const float* other = Xs + (warp ^ 1) * (2 * NCT * 4 * 32) + lane;
+#pragma unroll
+    for (int nt = 0; nt < NCT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        mine[(nt * 4 + e) * 32] = sp[nt][e];
+        mine[(NCT * 4 + nt * 4 + e) * 32] = dp[nt][e];
+      }
+    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < NCT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sp[nt][e] += other[(nt * 4 + e) * 32];
+        dp[nt][e] += other[(NCT * 4 + nt * 4 + e) * 32];
+      }
   }
 }
 
@@ -208,7 +271,7 @@ __global__ void flash_bwd_dsum_kernel(const float* __restrict__ o, const float* 
 }
 
 template <int HD>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ dsum,
@@ -216,134 +279,149 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       long long q_sb, long long q_ss, long long k_sb, long long k_ss,
                       long long v_sb, long long v_ss, int causal, int window, float softcap,
                       float scale) {
-  using D = Dims<HD>;
-  constexpr int LD = D::LD, DC = D::DC, NDT = D::NDT;
+  using C = Cfg<HD>;
+  constexpr int LD = C::LD, BR = C::BR, NT = C::NT, KS = C::KS, DW = C::DW, NDT = C::NDT;
+  constexpr int STAGE = 2 * BC * LD + 2 * BC;
   extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;           // [BR][LD] this block's keys
-  float* Vs = Ks + BR * LD;   // [BR][LD]
-  float* Qs = Vs + BR * LD;   // [BC][LD] one query tile
-  float* Gs = Qs + BC * LD;   // [BC][LD] its dO
-  float* Ls = Gs + BC * LD;   // [BC] its lse
-  float* Ds = Ls + BC;        // [BC] its D
+  float* Ks = smem;                // [BR][LD] this block's keys
+  float* Vs = Ks + BR * LD;        // [BR][LD]
+  float* ring = Vs + BR * LD;      // 2 stages: q [BC][LD], dO [BC][LD], lse [BC], D [BC]
+  float* Xs = ring + 2 * STAGE;    // S^T, dP^T halves (KS = 2)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int z = blockIdx.x % D::NZ, bk = blockIdx.x / D::NZ;
-  const int kvh = bk % KH, b = bk / KH, G = H / KH;
+  const int kr = (warp / KS) * 16;  // this warp's keys: k_lo + kr + g and + 8
+  const int c0 = (warp % KS) * DW;  // and its dK/dV columns [c0, c0 + DW)
+  const int kvh = blockIdx.x % KH, b = blockIdx.x / KH, G = H / KH;
   const int k_lo = blockIdx.y * BR;  // the heaviest causal tiles (lowest keys) first
-  const int c0 = z * DC;
   const int nq = (S + BC - 1) / BC;
   const int i_begin = causal ? k_lo / BC : 0;
   const int i_end = window > 0 ? min(nq, (k_lo + BR + window - 2) / BC + 1) : nq;
+  const int n_steps = G * (i_end - i_begin);
   const long long go_ss = (long long)H * HD;  // dO's row stride
 
-  load_rows<HD, BR>(Ks, k + b * k_sb + (long long)kvh * HD, k_ss, k_lo, S, tid);
-  load_rows<HD, BR>(Vs, v + b * v_sb + (long long)kvh * HD, v_ss, k_lo, S, tid);
+  // step n: q tile i_end - 1 - n / G, query head kvh G + n % G
+  auto load_step = [&](int n) {
+    const int h = kvh * G + n % G, q_lo = (i_end - 1 - n / G) * BC;
+    float* st = ring + (n & 1) * STAGE;
+    load_rows<HD, BC, NT>(st, q + b * q_sb + (long long)h * HD, q_ss, q_lo, S, tid);
+    load_rows<HD, BC, NT>(st + BC * LD, dout + (long long)b * S * go_ss + (long long)h * HD,
+                          go_ss, q_lo, S, tid);
+    if (tid < 2 * BC) {
+      const int qp = q_lo + tid % BC;
+      const float* src = (tid < BC ? lse : dsum) + ((long long)b * H + h) * S;
+      cp_async4(st + 2 * BC * LD + tid, src + (qp < S ? qp : 0), qp < S ? 4 : 0);
+    }
+  };
+
+  load_rows<HD, BR, NT>(Ks, k + b * k_sb + (long long)kvh * HD, k_ss, k_lo, S, tid);
+  load_rows<HD, BR, NT>(Vs, v + b * v_sb + (long long)kvh * HD, v_ss, k_lo, S, tid);
+  load_step(0);
   cp_async_commit();
 
-  const int kr = warp * 16;  // this warp's keys: k_lo + kr + g and + 8
   float dka[NDT][4], dva[NDT][4];
 #pragma unroll
   for (int dt = 0; dt < NDT; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.0f;
 
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kvh * G + gi;
-    const float* qbase = q + b * q_sb + (long long)h * HD;
-    const float* gbase = dout + (long long)b * S * go_ss + (long long)h * HD;
-    const float* lrow = lse + ((long long)b * H + h) * S;
-    const float* drow = dsum + ((long long)b * H + h) * S;
-    for (int i = i_begin; i < i_end; ++i) {
-      const int q_lo = i * BC;
-      __syncthreads();  // every warp is done with the last query tile
-      load_rows<HD, BC>(Qs, qbase, q_ss, q_lo, S, tid);
-      load_rows<HD, BC>(Gs, gbase, go_ss, q_lo, S, tid);
-      cp_async_commit();
-      if (tid < BC) {
-        const int qp = q_lo + tid;
-        Ls[tid] = qp < S ? lrow[qp] : 0.0f;
-        Ds[tid] = qp < S ? drow[qp] : 0.0f;
-      }
-      cp_async_wait<0>();
-      __syncthreads();
+  for (int n = 0; n < n_steps; ++n) {
+    const int q_lo = (i_end - 1 - n / G) * BC;
+    const float* Qs = ring + (n & 1) * STAGE;
+    const float* Gs = Qs + BC * LD;
+    const float* Ls = Gs + BC * LD;
+    const float* Ds = Ls + BC;
+    cp_async_wait<0>();
+    __syncthreads();  // tile n landed; every warp is done with tile n - 1
+    if (n + 1 < n_steps) load_step(n + 1);
+    cp_async_commit();
 
-      // S^T = K Q^T and dP^T = V dO^T: rows keys, columns queries
-      float sp[NCT][4], dp[NCT][4];
-      dot_rows<HD>(sp, Ks + (kr + g) * LD + 2 * t, Qs + g * LD + 2 * t);
-      dot_rows<HD>(dp, Vs + (kr + g) * LD + 2 * t, Gs + g * LD + 2 * t);
+    // S^T = K Q^T and dP^T = V dO^T over this warp's hd columns: rows keys,
+    // columns queries
+    float sp[NCT][4], dp[NCT][4];
+    dot_rows<LD, DW, true>(sp, Ks + (kr + g) * LD + c0 + 2 * t, Qs + g * LD + c0 + 2 * t);
+    dot_rows<LD, DW, false>(dp, Vs + (kr + g) * LD + c0 + 2 * t, Gs + g * LD + c0 + 2 * t);
+    add_halves<KS>(sp, dp, Xs, warp, lane);
 #pragma unroll
-      for (int nt = 0; nt < NCT; ++nt)
+    for (int nt = 0; nt < NCT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + 2 * t + (e & 1);
-          pair_grads(sp[nt][e], dp[nt][e], q_lo + col, k_lo + kr + g + 8 * (e >> 1), S, causal,
-                     window, softcap, scale, Ls[col], Ds[col]);
-        }
-      uint32_t fh[NCT][4], fl[NCT][4];
-      to_frag(sp, fh, fl);  // P^T
-      acc_pb<NDT, LD>(dva, fh, fl, Gs + 2 * t * LD + c0 + g);
-      to_frag(dp, fh, fl);  // dS^T
-      acc_pb<NDT, LD>(dka, fh, fl, Qs + 2 * t * LD + c0 + g);
-    }
+      for (int e = 0; e < 4; ++e) {
+        const int col = nt * 8 + 2 * t + (e & 1);
+        pair_grads(sp[nt][e], dp[nt][e], q_lo + col, k_lo + kr + g + 8 * (e >> 1), S, causal,
+                   window, softcap, scale, Ls[col], Ds[col]);
+      }
+    uint32_t fh[NCT][4], fl[NCT][4];
+    to_frag(sp, fh, fl);  // P^T
+    acc_pb<NDT, LD>(dva, fh, fl, Gs + 2 * t * LD + c0 + g);
+    to_frag(dp, fh, fl);  // dS^T
+    acc_pb<NDT, LD>(dka, fh, fl, Qs + 2 * t * LD + c0 + g);
   }
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kp = k_lo + kr + g + 8 * i;
+  for (int u = 0; u < 2; ++u) {
+    const int kp = k_lo + kr + g + 8 * u;
     if (kp >= S) continue;
     const long long off = (((long long)b * S + kp) * KH + kvh) * HD + c0 + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < NDT; ++dt) {
       *reinterpret_cast<float2*>(dk + off + dt * 8) =
-          make_float2(dka[dt][2 * i] * scale, dka[dt][2 * i + 1] * scale);
+          make_float2(dka[dt][2 * u] * scale, dka[dt][2 * u + 1] * scale);
       *reinterpret_cast<float2*>(dv + off + dt * 8) =
-          make_float2(dva[dt][2 * i], dva[dt][2 * i + 1]);
+          make_float2(dva[dt][2 * u], dva[dt][2 * u + 1]);
     }
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ dsum,
                     float* __restrict__ dq, int S, int H, int KH, long long q_sb,
                     long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                     long long v_ss, int causal, int window, float softcap, float scale) {
-  using D = Dims<HD>;
-  constexpr int LD = D::LD, DC = D::DC, NDT = D::NDT;
+  using C = Cfg<HD>;
+  constexpr int LD = C::LD, BR = C::BR, NT = C::NT, KS = C::KS, DW = C::DW, NDT = C::NDT;
+  constexpr int STAGE = 2 * BC * LD;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;           // [BR][LD] this block's queries
-  float* Gs = Qs + BR * LD;   // [BR][LD] their dO
-  float* Ks = Gs + BR * LD;   // [BC][LD] one key tile
-  float* Vs = Ks + BC * LD;   // [BC][LD]
+  float* Qs = smem;                // [BR][LD] this block's queries
+  float* Gs = Qs + BR * LD;        // [BR][LD] their dO
+  float* ring = Gs + BR * LD;      // 2 stages: k [BC][LD], v [BC][LD]
+  float* Xs = ring + 2 * STAGE;    // S, dP halves (KS = 2)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int z = blockIdx.x % D::NZ, bh = blockIdx.x / D::NZ;
-  const int h = bh % H, b = bh / H, kvh = h / (H / KH);
+  const int qr = (warp / KS) * 16;  // this warp's queries: q_lo + qr + g and + 8
+  const int c0 = (warp % KS) * DW;  // and its dQ columns [c0, c0 + DW)
+  const int h = blockIdx.x % H, b = blockIdx.x / H, kvh = h / (H / KH);
   const int q_lo = (gridDim.y - 1 - blockIdx.y) * BR;  // heaviest causal tiles first
-  const int c0 = z * DC;
   const int nk = (S + BC - 1) / BC;
   const int j_end = causal ? min(nk, (q_lo + BR - 1) / BC + 1) : nk;
   const int j_begin = (window > 0 && q_lo - window + 1 > 0) ? (q_lo - window + 1) / BC : 0;
+  const int n_steps = j_end - j_begin;
   const long long go_ss = (long long)H * HD;
   const float* kbase = k + b * k_sb + (long long)kvh * HD;
   const float* vbase = v + b * v_sb + (long long)kvh * HD;
 
-  load_rows<HD, BR>(Qs, q + b * q_sb + (long long)h * HD, q_ss, q_lo, S, tid);
-  load_rows<HD, BR>(Gs, dout + (long long)b * S * go_ss + (long long)h * HD, go_ss, q_lo, S,
-                    tid);
+  // step n: key tile j_begin + n
+  auto load_step = [&](int n) {
+    float* st = ring + (n & 1) * STAGE;
+    load_rows<HD, BC, NT>(st, kbase, k_ss, (j_begin + n) * BC, S, tid);
+    load_rows<HD, BC, NT>(st + BC * LD, vbase, v_ss, (j_begin + n) * BC, S, tid);
+  };
+
+  load_rows<HD, BR, NT>(Qs, q + b * q_sb + (long long)h * HD, q_ss, q_lo, S, tid);
+  load_rows<HD, BR, NT>(Gs, dout + (long long)b * S * go_ss + (long long)h * HD, go_ss, q_lo, S,
+                        tid);
+  load_step(0);
   cp_async_commit();
 
-  const int qr = warp * 16;  // this warp's queries: q_lo + qr + g and + 8
   float lr[2], dr[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qp = q_lo + qr + g + 8 * i;
+  for (int u = 0; u < 2; ++u) {
+    const int qp = q_lo + qr + g + 8 * u;
     const long long at = ((long long)b * H + h) * S + qp;
-    lr[i] = qp < S ? lse[at] : 0.0f;
-    dr[i] = qp < S ? dsum[at] : 0.0f;
+    lr[u] = qp < S ? lse[at] : 0.0f;
+    dr[u] = qp < S ? dsum[at] : 0.0f;
   }
   float dqa[NDT][4];
 #pragma unroll
@@ -351,19 +429,21 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dqa[dt][e] = 0.0f;
 
-  for (int j = j_begin; j < j_end; ++j) {
-    const int k_lo = j * BC;
-    __syncthreads();  // every warp is done with the last key tile
-    load_rows<HD, BC>(Ks, kbase, k_ss, k_lo, S, tid);
-    load_rows<HD, BC>(Vs, vbase, v_ss, k_lo, S, tid);
-    cp_async_commit();
+  for (int n = 0; n < n_steps; ++n) {
+    const int k_lo = (j_begin + n) * BC;
+    const float* Ks = ring + (n & 1) * STAGE;
+    const float* Vs = Ks + BC * LD;
     cp_async_wait<0>();
-    __syncthreads();
+    __syncthreads();  // tile n landed; every warp is done with tile n - 1
+    if (n + 1 < n_steps) load_step(n + 1);
+    cp_async_commit();
 
-    // S = Q K^T and dP = dO V^T: rows queries, columns keys
+    // S = Q K^T and dP = dO V^T over this warp's hd columns: rows queries,
+    // columns keys
     float sp[NCT][4], dp[NCT][4];
-    dot_rows<HD>(sp, Qs + (qr + g) * LD + 2 * t, Ks + g * LD + 2 * t);
-    dot_rows<HD>(dp, Gs + (qr + g) * LD + 2 * t, Vs + g * LD + 2 * t);
+    dot_rows<LD, DW, true>(sp, Qs + (qr + g) * LD + c0 + 2 * t, Ks + g * LD + c0 + 2 * t);
+    dot_rows<LD, DW, false>(dp, Gs + (qr + g) * LD + c0 + 2 * t, Vs + g * LD + c0 + 2 * t);
+    add_halves<KS>(sp, dp, Xs, warp, lane);
 #pragma unroll
     for (int nt = 0; nt < NCT; ++nt)
 #pragma unroll
@@ -378,14 +458,14 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qp = q_lo + qr + g + 8 * i;
+  for (int u = 0; u < 2; ++u) {
+    const int qp = q_lo + qr + g + 8 * u;
     if (qp >= S) continue;
-    float* row = dq + (((long long)b * S + qp) * H + h) * HD + c0 + 2 * t;
+    float* row = dq + ((long long)b * S + qp) * go_ss + (long long)h * HD + c0 + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < NDT; ++dt)
       *reinterpret_cast<float2*>(row + dt * 8) =
-          make_float2(dqa[dt][2 * i] * scale, dqa[dt][2 * i + 1] * scale);
+          make_float2(dqa[dt][2 * u] * scale, dqa[dt][2 * u + 1] * scale);
   }
 }
 
@@ -395,25 +475,26 @@ int launch(const float* q, const float* k, const float* v, const float* o, const
            int KH, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
            long long v_sb, long long v_ss, int causal, int window, float softcap, float scale,
            cudaStream_t st) {
-  const size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using C = Cfg<HD>;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::SMEM_DKDV);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)C::SMEM_DQ);
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)B * S * H;
   flash_bwd_dsum_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(o, dout, dsum, rows, S, H,
                                                                      HD);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const unsigned ny = (unsigned)((S + BR - 1) / BR);
-  flash_bwd_dkdv_kernel<HD><<<dim3((unsigned)(B * KH * Dims<HD>::NZ), ny), NT, smem, st>>>(
+  const unsigned ny = (unsigned)((S + C::BR - 1) / C::BR);
+  flash_bwd_dkdv_kernel<HD><<<dim3((unsigned)(B * KH), ny), C::NT, C::SMEM_DKDV, st>>>(
       q, k, v, dout, lse, dsum, dk, dv, S, H, KH, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, causal,
       window, softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<HD><<<dim3((unsigned)(B * H * Dims<HD>::NZ), ny), NT, smem, st>>>(
+  flash_bwd_dq_kernel<HD><<<dim3((unsigned)(B * H), ny), C::NT, C::SMEM_DQ, st>>>(
       q, k, v, dout, lse, dsum, dq, S, H, KH, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, causal, window,
       softcap, scale);
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
 // Split-TF32 products on Hopper's tensor cores (mma.sync m16n8k8), shared by
-// the flash-attention and fused int8-receive kernels.
+// the flash-attention (forward and backward), SSD-scan and fused int8-receive
+// kernels, with the cp.async helpers they stage tiles by.
 //
 // A TF32 operand keeps 10 explicit mantissa bits, so one pass of f32 data
 // through the tensor cores is about 1e-3 relative: over the port's f32 pins.
@@ -46,6 +47,19 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
 __device__ __forceinline__ void split_trunc(float x, uint32_t& hi, uint32_t& lo) {
   hi = __float_as_uint(x) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// x as hi + lo on the f32 pipe alone (Veltkamp's split, four instructions,
+// none of them on the integer pipe, which has half the f32 pipe's lanes):
+// c = x (2^13 + 1), hi = c - (c - x) is x rounded to 11 significant bits --
+// exact in TF32 -- and lo = x - hi exactly, of which the tensor core reads
+// the top 11 bits: x within 2^-23.  The _rn intrinsics keep nvcc from
+// contracting the steps into FMAs.  |x| must stay below 2^115 (c finite).
+__device__ __forceinline__ void split_fp(float x, uint32_t& hi, uint32_t& lo) {
+  const float c = __fmul_rn(x, 8193.0f);
+  const float h = __fsub_rn(c, __fsub_rn(c, x));
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(__fsub_rn(x, h));
 }
 
 // c (16 x 8, f32) += a (16 x 8, tf32) . b (8 x 8, tf32)

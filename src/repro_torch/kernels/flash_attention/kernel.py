@@ -15,8 +15,8 @@ a contiguous (B, H, S) f32 tensor.  Outputs are new contiguous tensors.
 with a sliding window also in ``launches_windowed``); with ``lse=True`` it
 also returns each row's logsumexp, the residual of the backward.
 ``flash_attention_bwd_cuda`` counts its launches (one call runs its three
-kernels) in ``launches``, and those with a window also in
-``launches_windowed``.
+kernels: D = rowsum(o dO), dK/dV, dQ) in ``launches``, and those with a
+window also in ``launches_windowed``.
 """
 
 from __future__ import annotations
@@ -26,6 +26,11 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (64, 80, 112, 128, 160, 256)
+# the backward's tiles (csrc/flash_attention_bwd.cu, Cfg): rows a block
+# owns (keys in the dK/dV kernel, queries in the dQ kernel) by head dim, and
+# the rows of the tiles each streams past them
+BWD_ROWS = {64: 64, 80: 64, 112: 128, 128: 128, 160: 64, 256: 32}
+BWD_TILE = 32
 
 
 def _require_rows(t: torch.Tensor, name: str) -> None:
@@ -112,9 +117,8 @@ def flash_attention_bwd_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv), f32 and contiguous, in the shapes of q, k, v."""
     b, s, h, kh, hd = _require_qkv(q, k, v)
-    nz = 2 if hd > 128 else 1  # above hd 128 a block writes half of a row's columns
-    if b * h * nz >= 2**31:
-        raise ValueError(f"backward grid takes B*H*{nz} < 2**31 at hd {hd}, got B*H={b * h}")
+    if -(-s // BWD_ROWS[hd]) > 65535:
+        raise ValueError(f"backward grid takes S <= {65535 * BWD_ROWS[hd]} at hd {hd}, got S={s}")
     for t, name, shape in ((o, "o", q.shape), (do, "do", q.shape), (lse, "lse", (b, h, s))):
         if t.device != q.device or t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32 on {q.device}, got {t.dtype} on {t.device}")

@@ -1,8 +1,11 @@
 """The split-precision arithmetic of the tensor-core kernels, in plain PyTorch.
 
-``csrc/flash_attention.cu``, ``csrc/quantize.cu`` (dequant_matmul) and
-``csrc/ssd_scan.cu`` take their products on the TF32 tensor cores (the
-SSD scan with the cheaper truncating split, ``split_trunc``).  One TF32 pass keeps 10 mantissa
+``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``,
+``csrc/quantize.cu`` (dequant_matmul) and ``csrc/ssd_scan.cu`` take their
+products on the TF32 tensor cores (the SSD scan with the cheaper truncating
+split, ``split_trunc``; the flash backward with Veltkamp's split on the f32
+pipe, ``split_fp``, for S and the truncating one for its other products).
+One TF32 pass keeps 10 mantissa
 bits, too few for the f32 pins, so each f32 operand x is split into
 ``hi = tf32_rna(x)`` and ``lo = tf32_rna(x - hi)`` and a product is
 ``a_lo.b_hi + a_hi.b_lo + a_hi.b_hi`` (3 passes).  int8 codes are exact in
@@ -54,6 +57,16 @@ def split_trunc(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_trunc(x - hi)
 
 
+def split_fp(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x as hi + lo by f32 arithmetic alone (``split_tf32::split_fp``,
+    Veltkamp's split): c = x (2^13 + 1), hi = c - (c - x), x rounded to 11
+    significant bits; lo = x - hi exactly, of which the tensor core reads the
+    top 11 bits -- modelled as truncated to TF32."""
+    c = x * 8193.0
+    hi = c - (c - x)
+    return hi, tf32_trunc(x - hi)
+
+
 def split_bf16(x: torch.Tensor, pieces: int) -> list[torch.Tensor]:
     """x as a sum of ``pieces`` bf16 values (round to nearest even), largest
     first: two keep 16 bits of x, three all 24."""
@@ -76,6 +89,13 @@ def matmul_split3_trunc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``matmul_split3`` with the truncating split."""
     ah, al = split_trunc(a)
     bh, bl = split_trunc(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def matmul_split3_fp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``matmul_split3`` with the flash backward's f32-pipe split."""
+    ah, al = split_fp(a)
+    bh, bl = split_fp(b)
     return al @ bh + ah @ bl + ah @ bh
 
 
@@ -110,6 +130,63 @@ def attention_emulated(q, k, v, *, causal, window, softcap, matmul=matmul_split3
     p = torch.exp(logits - logits.amax(-1, keepdim=True))
     o = matmul(p, v.permute(0, 2, 1, 3)[:, :, None]) / p.sum(-1, keepdim=True)
     return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd)
+
+
+def flash_backward_emulated(q, k, v, o, lse, do, *, causal, window, softcap):
+    """The flash backward kernel's arithmetic -> (dq, dk, dv), f32.
+
+    S through ``matmul_split3_fp`` (the kernel's rounded split; q.k scaled
+    after the product), dP and the three accumulations through
+    ``matmul_split3_trunc`` (its truncating split); p and ds as the kernel
+    forms them (exp of the capped, masked logit minus lse; p (dp - D) (1 -
+    r^2)); dv and dk summed over the 32-query tiles from the last down and
+    within each over the G query heads, one product a tile (the dK/dV
+    kernel's fresh fragment) added in f32, dk scaled at the end; dq summed
+    over the 32-key tiles in increasing order, one product a tile (the dQ
+    kernel's), then scaled.  A tile the masks leave dead adds exact zeros.
+    Sq may differ from Skv (queries at positions 0..Sq-1, as the plain
+    version masks)."""
+    from repro_torch.kernels.flash_attention.kernel import BWD_TILE
+
+    b, sq, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = hd**-0.5
+    qg = q.reshape(b, sq, kh, g, hd).permute(0, 2, 3, 1, 4)  # (b, kh, g, sq, hd)
+    dog = do.reshape(b, sq, kh, g, hd).permute(0, 2, 3, 1, 4)
+    kt = k.permute(0, 2, 1, 3)[:, :, None]  # (b, kh, 1, skv, hd)
+    vt = v.permute(0, 2, 1, 3)[:, :, None]
+    s = matmul_split3_fp(qg, kt.transpose(-1, -2)) * scale  # (b, kh, g, sq, skv)
+    dcap = None
+    if softcap > 0:
+        r = torch.tanh(s / softcap)
+        s, dcap = softcap * r, 1.0 - r * r
+    qpos, kpos = torch.arange(sq, device=q.device), torch.arange(skv, device=q.device)
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= qpos[:, None] >= kpos[None, :]
+    if window > 0:
+        ok &= qpos[:, None] - kpos[None, :] < window
+    p = torch.where(ok, torch.exp(s - lse.reshape(b, kh, g, sq)[..., None]), 0.0)
+    mm = matmul_split3_trunc
+    dp = mm(dog, vt.transpose(-1, -2))
+    d = (o * do).sum(-1).reshape(b, sq, kh, g).permute(0, 2, 3, 1)[..., None]
+    ds = p * (dp - d)
+    if dcap is not None:
+        ds = ds * dcap
+    dk = torch.zeros((b, kh, skv, hd), dtype=q.dtype, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in reversed(range(0, sq, BWD_TILE)):
+        rows = slice(q0, q0 + BWD_TILE)
+        for gi in range(g):
+            dv = dv + mm(p[:, :, gi, rows].transpose(-1, -2), dog[:, :, gi, rows])
+            dk = dk + mm(ds[:, :, gi, rows].transpose(-1, -2), qg[:, :, gi, rows])
+    dq = torch.zeros_like(qg)
+    for k0 in range(0, skv, BWD_TILE):
+        cols = slice(k0, k0 + BWD_TILE)
+        dq = dq + mm(ds[..., cols], kt[:, :, :, cols])
+    return ((dq * scale).permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd),
+            (dk * scale).permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3))
 
 
 def dequant_matmul_emulated(q, scale, w, block, w_pieces=None):

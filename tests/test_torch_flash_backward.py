@@ -9,7 +9,9 @@ to ``jax.grad`` of the JAX package's ``flash_attention`` on
 its blockwise path and custom VJP (``_backward``), not its naive fallback --
 and ``flash_backward_ref``, written out from ``_bwd_block``'s formula, is
 held to autograd through the port's own ``attention_ref``.  Same seeded
-numpy inputs through both, f32.  Pin: 1e-4 of max|ref| per gradient, the
+numpy inputs through both, f32.  The model of the CUDA backward's
+arithmetic (``split_precision.flash_backward_emulated``) is held to the
+same ``jax.grad`` on ``SWEEP[:5]``.  Pin: 1e-4 of max|ref| per gradient, the
 JAX package's own gradient tolerance (``tests/test_kernels.py``).
 """
 
@@ -30,6 +32,7 @@ from repro_torch.kernels.flash_attention.ref import (
     attention_ref_lse,
     flash_backward_ref,
 )
+from repro_torch.kernels.split_precision import flash_backward_emulated
 
 TOL = 1e-4
 
@@ -63,6 +66,24 @@ def test_grads_match_jax_custom_vjp(case, monkeypatch):
     assert calls == [1]  # the Function's own backward ran
     for name, t, w in zip("qkv", ts, want):
         err = _rel(t.grad.numpy(), w)
+        assert err <= TOL, f"d{name}: {err:.3g} of max|ref| > {TOL}"
+
+
+@pytest.mark.parametrize("case", SWEEP[:5])
+def test_backward_model_matches_jax_grad(case):
+    """The model of the backward kernel's arithmetic (``flash_backward_emulated``)
+    on the port's plain residuals, against ``jax.grad`` of the JAX package's
+    ``flash_attention`` on the same inputs (loss sum(o^2), so dO = 2 o)."""
+    b, sq, skv, h, kh, hd, causal, window, softcap, block, _ = case
+    q, k, v = _inputs(b, sq, skv, h, kh, hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    want = jax.grad(lambda *a: (jax_flash_attention(*a, block=block, **kw) ** 2).sum(),
+                    argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    ts = [torch.from_numpy(a) for a in (q, k, v)]
+    o, lse = attention_ref_lse(*ts, **kw)
+    got = flash_backward_emulated(*ts, o, lse, 2 * o, **kw)
+    for name, g, w in zip("qkv", got, want):
+        err = _rel(g.numpy(), w)
         assert err <= TOL, f"d{name}: {err:.3g} of max|ref| > {TOL}"
 
 

@@ -676,6 +676,67 @@ def test_flash_backward_matches_plain(cuda, hd, s, g, causal, window, softcap):
         assert ((a - w).abs().max() / w.abs().max()).item() <= 2e-5
 
 
+def _bwd_within_pin(got, again, want, scale_floor: float = 0.0) -> None:
+    """Each gradient equal to its second run and within 2e-5 of max|plain|
+    (or of ``scale_floor`` where that is larger: a gradient that is 0 in
+    exact math, whose plain value is rounding noise)."""
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        top = max(w.abs().max().item(), scale_floor)
+        assert (a - w).abs().max().item() <= 2e-5 * top
+
+
+@pytest.mark.parametrize("hd,s,g,causal,window,softcap", [
+    (160, 333, 8, True, 0, 50.0),    # G = 8 where two warps share 16 keys
+    (256, 333, 8, True, 0, 0.0),
+    (160, 777, 8, False, 0, 0.0),
+    (64, 300, 2, True, 5, 0.0),      # windows shorter than one kv tile
+    (128, 300, 4, True, 7, 50.0),
+    (256, 200, 2, False, 3, 0.0),
+    (80, 1000, 1, True, 0, 0.0),     # S not a multiple of a kv tile (64 or 128 keys)
+    (112, 1000, 1, True, 0, 50.0),
+    (256, 65, 2, True, 0, 0.0),
+])
+def test_flash_backward_redesign_edges(cuda, hd, s, g, causal, window, softcap):
+    """The one-pass backward where its design has edges: G = 8 at hd 160 and
+    256 (the column-sharing warp pairs), a window shorter than one kv tile,
+    S ragged against the kernel's kv tile; within 2e-5 of max|plain|, two
+    runs equal."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_backward_ref
+
+    q, k, v = _flash_case(cuda, 1, s, g, 1, hd, 70)
+    do = _randn(q.shape, 74, cuda)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    _bwd_within_pin(got, again, flash_backward_ref(q, k, v, o, lse, do, **kw))
+
+
+@pytest.mark.parametrize("hd", ZOO_HEAD_DIMS)
+def test_flash_backward_one_token_and_back_to_back_shapes(cuda, hd):
+    """S = 1 (dq and dk are 0 in exact math: held at 2e-5 of max|dv|), then
+    two calls of different shapes back to back and the first again: each
+    call's zeroed counters are its own, so the repeat equals the first."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_backward_ref
+
+    runs = []
+    for b, s, h, kh, causal in ((2, 1, 4, 2, True), (1, 700, 4, 1, True), (2, 300, 2, 2, False),
+                                (1, 700, 4, 1, True)):
+        q, k, v = _flash_case(cuda, b, s, h, kh, hd, 80 + s)
+        do = _randn(q.shape, 84 + s, cuda)
+        o, lse = flash_attention_cuda(q, k, v, lse=True, causal=causal)
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+        again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+        want = flash_backward_ref(q, k, v, o, lse, do, causal=causal)
+        _bwd_within_pin(got, again, want, want[2].abs().max().item() if s == 1 else 0.0)
+        runs.append(got)
+    for a, b in zip(runs[1], runs[3]):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("hd", ZOO_HEAD_DIMS)
 @pytest.mark.parametrize("s,g,causal,window,softcap,scale", [
     (1000, 2, True, 0, 50.0, 1.0),    # causal, soft-capped GQA, ragged S

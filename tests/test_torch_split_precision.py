@@ -9,7 +9,8 @@ holds the kernel against this model there).  Here the model is held, on the
 same numpy-seeded inputs, against the port's plain versions and the JAX
 package's references (its ``attention_ref``, and its ``dequant_matmul`` on
 the jnp path and through the Pallas kernel in interpret mode, as its own
-tests run them): 2e-5 max-abs for attention, 1e-5 of max|ref| for
+tests run them): 2e-5 max-abs for attention, 2e-5 of max|ref| for the
+flash backward (its model also against an f64 run), 1e-5 of max|ref| for
 dequant_matmul, the pins the kernels are held to on the card.
 
 It also weighs the bf16 routes that ``chip_smoke.py``'s bounds consider: a
@@ -29,12 +30,17 @@ from repro.kernels.quantize import dequant_matmul as jax_dequant_matmul
 from repro.kernels.quantize.ref import quantize_ref as jax_quantize_ref
 from repro.kernels.ssm_scan.kernel import ssd_chunked_tpu as jax_ssd_chunked_tpu
 from repro.kernels.ssm_scan.ref import ssd_ref as jax_ssd_ref
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref,
+    attention_ref_lse,
+    flash_backward_ref,
+)
 from repro_torch.kernels.quantize.ref import dequant_matmul_ref
 from repro_torch.kernels.split_precision import (
     TF32_LOW_BITS,
     attention_emulated,
     dequant_matmul_emulated,
+    flash_backward_emulated,
     matmul_bf16x3,
     matmul_tf32,
     split,
@@ -148,6 +154,40 @@ def test_attention_split3_at_large_scale_as_accurate_as_f32():
     plain = attention_ref(q, k, v, causal=True, window=0, softcap=50.0)
     emulated = attention_emulated(q, k, v, causal=True, window=0, softcap=50.0)
     assert _max_abs(emulated, exact) <= 2 * _max_abs(plain, exact)
+
+
+FLASH_BWD_CASES = [  # (s, h, kh, hd, causal, window, softcap)
+    (300, 1, 1, 64, True, 0, 50.0),     # G = 1, causal, soft-capped; S ragged to every tile
+    (300, 4, 1, 80, True, 5, 0.0),      # G = 4, a window below one tile
+    (257, 8, 1, 160, True, 0, 0.0),     # G = 8 where warp pairs share 16 keys
+    (200, 8, 1, 256, True, 7, 50.0),
+    (129, 4, 1, 64, False, 0, 0.0),     # non-causal
+    (161, 2, 2, 160, False, 0, 50.0),
+    (1, 4, 1, 80, True, 0, 0.0),        # one token: dq and dk are 0 in exact math
+]
+
+
+@pytest.mark.parametrize("s,h,kh,hd,causal,window,softcap", FLASH_BWD_CASES)
+def test_flash_backward_model_holds_the_pin(s, h, kh, hd, causal, window, softcap):
+    """The backward kernel's arithmetic (``flash_backward_emulated``: its
+    split, its tiles, its orders of summation) within 2e-5 of max|ref| of
+    ``flash_backward_ref`` in f32 and of an f64 run of it, on the same plain
+    residuals; at S=1, dq and dk (rounding noise around 0) are held to
+    2e-5 of max|dv|."""
+    q, k, v = (torch.from_numpy(_normal((1, s, n, hd), 60 + i)) for i, n in enumerate((h, kh, kh)))
+    do = torch.from_numpy(_normal((1, s, h, hd), 63))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = attention_ref_lse(q, k, v, **kw)
+    model = flash_backward_emulated(q, k, v, o, lse, do, **kw)
+    plain = flash_backward_ref(q, k, v, o, lse, do, **kw)
+    exact = [t.double() for t in (q, k, v)]
+    o64, lse64 = attention_ref_lse(*exact, **kw)
+    f64 = flash_backward_ref(*exact, o64, lse64, do.double(), **kw)
+    floor = float(plain[2].abs().max()) if s == 1 else 0.0
+    for got, ref32, ref64 in zip(model, plain, f64):
+        assert got.shape == ref32.shape and got.dtype == torch.float32
+        assert _max_abs(got, ref32) <= TOL_FLASH * max(float(ref32.abs().max()), floor)
+        assert _max_abs(got, ref64) <= TOL_FLASH * max(float(ref64.abs().max()), floor)
 
 
 DQMM_CASES = [  # (n, d, dout, block)
