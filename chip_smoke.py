@@ -157,7 +157,8 @@ the first fault:
    (gemma2's); the SSD backward
    (``ssd_chunked_bwd``) on (g)'s own inputs beside its bound (xs, dy, dxs
    and the small tensors once; the fewest product FLOPs of any chunking at
-   3 TF32 passes), the bytes and FLOPs of its own design, and its plain
+   3 TF32 passes), the bytes and FLOPs of its own design (whole state
+   walks, head groups, split-TF32), and its plain
    version (no PyTorch call computes it: library none).  (h)-(l) One arch
    of each remaining family at its published widths, bf16 params, moments
    and gradient accumulation in its ``opt_state_dtype``, every group
@@ -1648,6 +1649,9 @@ SSD_BWD_CASES = [
     (1, 40, 3, 64, 64, 1.0),       # one ragged chunk
     (1, 1000, 2, 22, 37, 0.01),    # ragged, dh and N below 64 and not multiples of 4
     (1, 512, 2, 64, 16, 200.0),    # strong decay: exp above the diagonal overflows unmasked
+    (1, 256, 3, 64, 64, 0.01),     # H = 3: one head group of 8, 5 heads masked
+    (2, 512, 10, 64, 64, 0.01),    # H = 10: a full head group and a short one
+    (1, 1000, 9, 22, 37, 0.01),    # a short group over ragged chunks
     (4, 4096, 80, 64, 64, 1.0),    # zamba2-2.7b's Mamba2 layer at its training microbatch
 ]
 
@@ -2354,19 +2358,20 @@ def ssd_bwd_flops(b: int, s: int, h: int, dh: int, n: int, q: int) -> int:
     return b * (h * per_head + shared)
 
 
-def ssd_bwd_design_bytes(b: int, s: int, h: int, dh: int, n: int) -> int:
-    """Bytes the backward's four kernels move: the states pass reads xs, bm,
-    dy, cm and dt (dt twice) and writes the two (B, H, nc, dh, N) states;
-    the chunk kernel reads xs, dy, bm, cm, dt (per head: bm and cm H times,
-    from L2 at best) and both states and writes dxs, ddt, the per-head dbm
-    and dcm partials (B, S, H, N) and the da partials; the reduction reads
-    the partials and writes dbm and dcm."""
+def ssd_bwd_design_bytes(b: int, s: int, h: int, dh: int, n: int, group: int) -> int:
+    """Bytes the backward's four kernels move (csrc/ssd_scan_bwd.cu): the
+    state pass reads xs, dy, dt, bm and cm and writes h and dH of every
+    chunk, (B, H, nc, 64, 64) each; the chunk kernel reads xs, dy, bm, cm,
+    dt, h and dH and writes dxs, ddt, one dbm and dcm partial per head group
+    (B, S, ceil(H / group), N) and the da partials; the reduction reads the
+    partials and writes dbm and dcm."""
     nc = -(-s // 64)
-    x, bn, t, st = b * s * h * dh, b * s * n, b * s * h, b * h * nc * dh * n
-    part = b * s * h * n
-    states = 2 * x + 2 * bn + 2 * t + 2 * st
-    chunk = 2 * x + 2 * bn * h + t + 2 * st + x + t + 2 * part + b * h * nc
-    return 4 * (states + chunk + 2 * part + 2 * bn + b * h * nc + h)
+    x, bn, t = b * s * h * dh, b * s * n, b * s * h
+    st, part, dap = b * h * nc * 64 * 64, b * s * -(-h // group) * n, b * h * nc
+    inputs = 2 * x + 2 * bn + t
+    states = inputs + 2 * st
+    chunk = inputs + 2 * st + x + t + 2 * part + dap
+    return int(4 * (states + chunk + 2 * part + 2 * bn + dap + h))
 
 
 def ssd_bwd_times(card: str, zamba: dict, err: float) -> dict:
@@ -2374,7 +2379,7 @@ def ssd_bwd_times(card: str, zamba: dict, err: float) -> dict:
     bound (inputs and outputs once; the fewest product FLOPs of any chunking
     at 3 TF32 passes), the plain version at the kernel's chunk, and the
     bytes this design moves."""
-    from repro_torch.kernels.ssm_scan.kernel import KERNEL_CHUNK, ssd_chunked_bwd_cuda
+    from repro_torch.kernels.ssm_scan.kernel import HEAD_GROUP, KERNEL_CHUNK, ssd_chunked_bwd_cuda
     from repro_torch.kernels.ssm_scan.ref import ssd_backward_ref_padded
 
     (args, kw), = zamba["ssd_calls"].values()
@@ -2389,16 +2394,16 @@ def ssd_bwd_times(card: str, zamba: dict, err: float) -> dict:
     flops = ssd_bwd_flops(b, s, h, dh, n, q_min)
     b_ms, b_by, fma_ms = bound_ms(nbytes, flops, F32_PRODUCT_S_PER_FLOP)
     flops_64 = ssd_bwd_flops(b, s, h, dh, n, KERNEL_CHUNK)
-    design = ssd_bwd_design_bytes(b, s, h, dh, n)
-    design_ms = bound_ms(design, flops_64, F32_PRODUCT_S_PER_FLOP)[0]
-    fma_64_ms = flops_64 / F32_FLOP_PER_S * 1e3
+    design = ssd_bwd_design_bytes(b, s, h, dh, n, HEAD_GROUP)
+    design_ms, design_by, _ = bound_ms(design, flops_64, F32_PRODUCT_S_PER_FLOP)
     steps = TRAIN_ZAMBA["steps"]
     say("times", f"ssd_chunked_bwd xs {(b, s, h, dh)} N={n} (zamba2-2.7b microbatch): {ms:.4f} "
                  f"ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e9:.3f} GB once, "
                  f"{flops / 1e9:.2f} GFLOP at Q={q_min} at 3 TF32 passes; {b_ms / ms:.1%} of it; "
                  f"f32 FMA bound {fma_ms:.4f} ms); this design: {flops_64 / 1e9:.2f} GFLOP at "
-                 f"Q={KERNEL_CHUNK} on the FMA units ({fma_64_ms:.4f} ms at 67 TFLOP/s), "
-                 f"{design / 1e9:.3f} GB (states and partials counted), bound {design_ms:.4f} ms; "
+                 f"Q={KERNEL_CHUNK} at 3 TF32 passes, {design / 1e9:.3f} GB (h, dH and the head "
+                 f"groups' partials through device memory; {HEAD_GROUP} heads a group), "
+                 f"bound {design_ms:.4f} ms ({design_by}; {design_ms / ms:.1%} of it); "
                  f"plain {plain_ms:.4f} ms; library none; launches {zamba['ssd_bwd_launches']} in "
                  f"{steps} steps; {card}")
     return {"name": "ssd_chunked_bwd", "route": "cuda",

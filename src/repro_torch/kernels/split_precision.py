@@ -1,10 +1,12 @@
 """The split-precision arithmetic of the tensor-core kernels, in plain PyTorch.
 
 ``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``,
-``csrc/quantize.cu`` (dequant_matmul) and ``csrc/ssd_scan.cu`` take their
-products on the TF32 tensor cores (the SSD scan with the cheaper truncating
-split, ``split_trunc``; the flash backward with Veltkamp's split on the f32
-pipe, ``split_fp``, for S and the truncating one for its other products).
+``csrc/quantize.cu`` (dequant_matmul), ``csrc/ssd_scan.cu`` and
+``csrc/ssd_scan_bwd.cu`` take their products on the TF32 tensor cores (the
+SSD scan with the cheaper truncating split, ``split_trunc``; the flash
+backward with Veltkamp's split on the f32 pipe, ``split_fp``, for S and the
+truncating one for its other products; the SSD backward with the
+truncating split everywhere).
 One TF32 pass keeps 10 mantissa
 bits, too few for the f32 pins, so each f32 operand x is split into
 ``hi = tf32_rna(x)`` and ``lo = tf32_rna(x - hi)`` and a product is
@@ -26,7 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssm_scan.ref import chunk_cumsum
+from repro_torch.kernels.ssm_scan.ref import chunk_cumsum, ssd_backward_ref_grouped
 
 TF32_LOW_BITS = 0x1FFF  # the 13 mantissa bits TF32 drops
 
@@ -234,3 +236,38 @@ def ssd_emulated(xs, bm, cm, dt, a, *, chunk: int = 64, matmul=matmul_split3_tru
         bw = bk * (torch.exp(cu[..., -1:] - cu) * dk)[..., None]  # (B, H, q, N)
         state_t = state_t * torch.exp(cu[..., -1])[..., None, None] + matmul(bw.transpose(-1, -2), x)
     return torch.cat(ys, 2).permute(0, 2, 1, 3)[:, :s]
+
+
+SSD_BWD_K_GROUP = 32  # k a fresh fragment takes (4 mma k steps, 12 mma), then an f32 add
+
+
+def matmul_split3_k(a, b, split_fn, k_group: int = SSD_BWD_K_GROUP):
+    """a @ b in three split passes (``split_fn``), small terms first, over
+    k in groups of ``k_group`` summed in f32 in order: the kernels' fresh
+    fragments."""
+    out = None
+    for k0 in range(0, a.shape[-1], k_group):
+        ah, al = split_fn(a[..., k0:k0 + k_group])
+        bh, bl = split_fn(b[..., k0:k0 + k_group, :])
+        part = al @ bh + ah @ bl + ah @ bh
+        out = part if out is None else out + part
+    return out
+
+
+def ssd_backward_emulated(xs, bm, cm, dt, a, dy, *, group: int = 8, matmul=None):
+    """The SSD backward kernel's arithmetic -> (dxs, dbm, dcm, ddt, da), f32.
+
+    The kernel's decomposition (``ssm_scan.ref.ssd_backward_ref_grouped``
+    at its chunk of 64: whole state walks, head groups summing dbm and dcm
+    in head order) with every product in split-TF32, each operand split
+    by ``split_trunc`` as the kernel splits it, over fresh fragments of 32 k;
+    or every product through ``matmul`` (one TF32 pass: ``matmul_tf32``).
+    The masks, decays, scalings and the row vectors' sums stay in f32, as
+    the kernel keeps them on the FMA units."""
+    from repro_torch.kernels.ssm_scan.kernel import KERNEL_CHUNK
+
+    def product(name, x, y):
+        return matmul(x, y) if matmul is not None else matmul_split3_k(x, y, split_trunc)
+
+    return ssd_backward_ref_grouped(xs, bm, cm, dt, a, dy, chunk=KERNEL_CHUNK, group=group,
+                                    matmul=product)

@@ -22,11 +22,15 @@ same decomposition in plain PyTorch.
 
 ``ssd_chunked_bwd_cuda`` takes the same tensors and dy (B, S, H, dh), under
 the same checks, and returns (dxs, dbm, dcm, ddt, da), new f32 tensors.  It
-tiles at ``KERNEL_CHUNK`` too and allocates the scratch its four kernels
-share: the state entering and the gradient of the state leaving every
-chunk, (B, H, nc, dh, N) each, each head's share of dbm and dcm, (B, S, H,
-N) each (1.34 GB together at zamba2-2.7b's microbatch of 4 x 4096), and
-each chunk's share of da.  One call is one launch in ``launches``.
+tiles at ``KERNEL_CHUNK`` too.  Its state pass walks each sequence whole in
+both directions, and its chunk kernel takes ``HEAD_GROUP`` heads a block,
+summing their shares of dbm and dcm.  The wrapper allocates the scratch
+the four kernels share: the state entering and the gradient of the state
+leaving every chunk, (B, H, nc, 64, 64) each; one share of dbm and of dcm
+per head group, (B, S, ceil(H / HEAD_GROUP), N) each; and each chunk's
+share of da.  At zamba2-2.7b's microbatch of 4 x 4096 (H=80, dh=N=64) that
+is 0.755 GB (a partial per head took 1.34 GB).  One call is one launch in
+``launches``.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ BLOCKS_PER_SM = 2  # resident blocks of the folding (output) kernel on one SM
 # the last; 2 waves (P=2 at demo_ssm's served layer) measured fastest
 WAVES = 2
 MIN_SEGMENT_CHUNKS = 4  # shorter segments cost more in folds than they gain
+HEAD_GROUP = 8  # heads a block of the backward's chunk kernel takes (at most 8)
 
 
 def segments_for(b: int, h: int, n_chunks: int, sms: int) -> int:
@@ -151,15 +156,17 @@ def ssd_chunked_bwd_cuda(
     dxs, dbm, dcm, ddt, da = (new(sh, dtype=torch.float32, device=dev) for sh in shapes)
     if not (b and s and h):
         return dxs, dbm, dcm, ddt, da
+    groups = -(-h // HEAD_GROUP)
+    w = MAX_WIDTH
     states, dstates, dbp, dcp, dap = (
         torch.empty(sh, dtype=torch.float32, device=dev)
-        for sh in ((b, h, nc, dh, n), (b, h, nc, dh, n), (b, s, h, n), (b, s, h, n), (b, h, nc)))
+        for sh in ((b, h, nc, w, w), (b, h, nc, w, w), (b, s, groups, n), (b, s, groups, n),
+                   (b, h, nc)))
     err = _build.lib().seifer_ssd_scan_bwd(
         xs.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(), a.data_ptr(),
         dy.data_ptr(), dxs.data_ptr(), dbm.data_ptr(), dcm.data_ptr(), ddt.data_ptr(),
-        da.data_ptr(), states.data_ptr(), dstates.data_ptr(), dbp.data_ptr(),
-        dcp.data_ptr(), dap.data_ptr(), b, s, h, dh, n,
-        torch.cuda.current_stream(dev).cuda_stream)
+        da.data_ptr(), states.data_ptr(), dstates.data_ptr(), dbp.data_ptr(), dcp.data_ptr(),
+        dap.data_ptr(), b, s, h, dh, n, HEAD_GROUP, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ssd_scan_bwd")
     ssd_chunked_bwd_cuda.launches += 1
     return dxs, dbm, dcm, ddt, da

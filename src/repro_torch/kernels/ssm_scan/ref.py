@@ -31,6 +31,10 @@ its blocks fill the card; ``ssd_ref_segmented`` is that decomposition in
 plain PyTorch (end states of the segments from zero, folded in order), and
 at one segment it is ``ssd_ref_padded``.  The CPU tests hold these to the
 JAX package, and ``chip_smoke.py`` holds the kernel to them on the card.
+``ssd_backward_ref_grouped`` is the backward kernel's decomposition: both
+state recurrences walked whole, every chunk's gradients at once from its
+entering state and leaving dH, and dbm / dcm summed over groups of heads,
+in head order within a group and in group order after.
 """
 
 from __future__ import annotations
@@ -258,3 +262,104 @@ def ssd_ref_segmented(xs, bm, cm, dt, a, *, chunk: int, segments: int):
             decay = decay * torch.exp(cum_last[:, c])
         carried = end if carried is None else carried * decay[:, :, None, None] + end
     return torch.cat(ys, 1)[:, :s]
+
+
+def _walk(contrib, decay, *, reverse: bool):
+    """The state entering every chunk (forward: st <- st decay_c +
+    contrib_c from chunk 0) or leaving it (reverse: from the last chunk
+    down), as the backward kernel's state pass computes it.  contrib (B, H,
+    nc, ...), decay (B, H, nc)."""
+    nc = contrib.shape[2]
+    tail = (None,) * (contrib.dim() - 3)
+    out = torch.empty_like(contrib)
+    st = torch.zeros_like(contrib[:, :, 0])
+    for c in (range(nc - 1, -1, -1) if reverse else range(nc)):
+        out[:, :, c] = st
+        st = st * decay[:, :, c][(...,) + tail] + contrib[:, :, c]
+    return out
+
+
+def ssd_backward_ref_grouped(xs, bm, cm, dt, a, dy, *, chunk: int, group: int, matmul=None):
+    """``ssd_backward_ref_padded`` computed as the backward kernel
+    decomposes it -> (dxs, dbm, dcm, ddt, da).
+
+    S is zero-padded to a multiple of ``chunk``.  The states are kept
+    transposed (N x dh, as the kernel's fragments hold them): h_c entering
+    chunk c by st <- exp(cum_L) st + (B o dt)^T x, dH_c leaving it by st <-
+    exp(cum_L) st + (C e)^T dy from the last chunk down (``_walk``).  Every
+    chunk's gradients then follow from its h and dH at once, with
+    ``ssd_backward_ref``'s formulas; dbm and dcm are each head's share
+    summed over groups of ``group`` consecutive
+    heads (the last group may be short), in head order within a group, and
+    the group sums added in group order; da is the chunks' shares summed
+    over batch rows, then chunks, in order.  ``matmul(name, a, b)`` takes
+    every product (``torch.matmul`` when None); the names are G (C B^T), P
+    (dy x^T), dx (scores^T dy), vh (dy h), dC (scores B), dB (scores^T C),
+    xd (x dH), u (B dH^T), state and dstate (the recurrences' products).
+    ``split_precision.ssd_backward_emulated`` passes the kernel's split
+    products."""
+    mm = (lambda name, x, y: x @ y) if matmul is None else matmul  # noqa: E731
+    b, s, h, dh = xs.shape
+    n = bm.shape[-1]
+    q = chunk
+    xs, bm, cm, dt, dy = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, -s % q))
+                          for t in (xs, bm, cm, dt, dy))
+    nc = xs.shape[1] // q
+    f = torch.promote_types(xs.dtype, torch.float32)
+
+    def heads(t):  # (B, S, H, ...) -> (B, H, nc, Q, ...)
+        return t.reshape(b, nc, q, h, -1).movedim(3, 1).to(f)
+
+    x, y = heads(xs), heads(dy)
+    bb, cc = (t.reshape(b, 1, nc, q, n).to(f) for t in (bm, cm))
+    dtk = heads(dt)[..., 0]  # (B, H, nc, Q)
+    cum = heads(chunk_cumsum((dt * a).reshape(b, nc, q, h), 2).reshape(b, nc * q, h))[..., 0]
+    tk = heads(chunk_cumsum(dt.reshape(b, nc, q, h), 2).reshape(b, nc * q, h))[..., 0]
+    e = torch.exp(cum)
+    el = torch.exp(cum[..., -1])  # (B, H, nc)
+    o = torch.exp(cum[..., -1:] - cum)
+    odt = o * dtk
+
+    hs = _walk(mm("state", (bb * odt[..., None]).transpose(-1, -2), x), el,
+               reverse=False)  # (B, H, nc, N, dh)
+    dhs = _walk(mm("dstate", (cc * e[..., None]).transpose(-1, -2), y), el, reverse=True)
+
+    upper = ~torch.ones((q, q), dtype=torch.bool, device=xs.device).tril()
+    lmat = torch.exp((cum[..., :, None] - cum[..., None, :]).masked_fill(upper, float("-inf")))
+    g = mm("G", cc, bb.transpose(-1, -2))  # [t][s], shared by the heads
+    p = mm("P", y, x.transpose(-1, -2))
+    w = lmat * dtk[..., None, :]
+    sg, sp = g * w, p * w
+    z = p * g * lmat
+    m = z * dtk[..., None, :]
+    u = mm("u", bb, dhs)  # [s][d] = sum_n B[s][n] dH[d][n]
+    vh = mm("vh", y, hs.transpose(-1, -2))  # [t][n] = sum_d dy[t][d] h[d][n]
+    xd = mm("xd", x, dhs.transpose(-1, -2))  # [s][n] = sum_d x[s][d] dH[d][n]
+    dx = mm("dx", sg.transpose(-1, -2), y) + odt[..., None] * u
+    dc_h = mm("dC", sp, bb) + e[..., None] * vh
+    db_h = mm("dB", sp.transpose(-1, -2), cc) + odt[..., None] * xd
+    r = o * (x * u).sum(-1)
+    ev = e * (vh * cc).sum(-1)
+    hdh = el * (dhs * hs).sum((-1, -2))
+    dcum = m.sum(-1) - m.sum(-2) + ev - r * dtk
+    dcum = torch.cat([dcum[..., :-1], (dcum[..., -1] + hdh + (r * dtk).sum(-1))[..., None]], -1)
+    dda = dcum.flip(-1).cumsum(-1).flip(-1)
+    ddt = z.sum(-2) + r + dda * a[:, None, None]
+    tdiff = (tk[..., :, None] - tk[..., None, :]).masked_fill(upper, 0.0)
+    dap = ((m * tdiff).sum((-1, -2)) + (ev * tk + r * dtk * (tk[..., -1:] - tk)).sum(-1)
+           + hdh * tk[..., -1])  # (B, H, nc)
+    da = dap.movedim(1, 0).reshape(h, -1).cumsum(-1)[:, -1]  # batch rows, then chunks
+
+    def grouped(t):  # (B, H, nc, Q, N) -> (B, S, N): heads summed by groups
+        total = None
+        for g0 in range(0, h, group):
+            part = t[:, g0]
+            for hh in range(g0 + 1, min(g0 + group, h)):
+                part = part + t[:, hh]
+            total = part if total is None else total + part
+        return total.reshape(b, nc * q, n)[:, :s]
+
+    def rows_of(t):  # (B, H, nc, Q, ...) -> (B, S, H, ...)
+        return t.movedim(1, 3).reshape(b, nc * q, h, *t.shape[4:])[:, :s]
+
+    return rows_of(dx), grouped(db_h), grouped(dc_h), rows_of(ddt[..., None])[..., 0], da

@@ -459,6 +459,29 @@ def test_ssd_backward_edges(cuda, b, s, h, dh, n):
     _assert_ssd_bwd(_ssd_bwd_case(cuda, b, s, h, dh, n, 71, 0.01), s, (b, s, h, dh, n))
 
 
+@pytest.mark.parametrize("b,s,h,dh,n", [
+    (1, 256, 3, 64, 64),    # H = 3: one head group of 8, five heads masked
+    (2, 512, 10, 64, 64),   # H = 10: a full head group and a short one
+    (1, 256, 8, 64, 32),    # exactly one group
+    (1, 256, 1, 64, 32),    # one head
+    (1, 1000, 9, 22, 37),   # a short group over ragged chunks, dh and N not multiples of 4
+])
+def test_ssd_backward_head_groups(cuda, b, s, h, dh, n):
+    """Head counts that are and are not a multiple of the chunk kernel's
+    group of 8 heads, at dt / 100 so that every carried state and dH
+    reaches every chunk."""
+    _assert_ssd_bwd(_ssd_bwd_case(cuda, b, s, h, dh, n, 74, 0.01), s, (b, s, h, dh, n))
+
+
+def test_ssd_backward_refuses_bad_dy(cuda):
+    args = _ssd_bwd_case(cuda, 1, 128, 2, 16, 8, 75)
+    with pytest.raises(ValueError, match="dy must have shape"):
+        ssd_chunked_bwd_cuda(*args[:5], args[5][:, :64].contiguous(), chunk=128)
+    with pytest.raises(ValueError, match="dy must be contiguous"):
+        ssd_chunked_bwd_cuda(*args[:5], args[5].transpose(2, 3).contiguous().transpose(2, 3),
+                             chunk=128)
+
+
 def test_ssd_backward_strong_decay(cuda):
     """dt x 200 with a = (-5, -0.5) (the forward's strong-decay test): the
     masked exp above the diagonal overflows and every carried state

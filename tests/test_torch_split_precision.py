@@ -11,7 +11,9 @@ package's references (its ``attention_ref``, and its ``dequant_matmul`` on
 the jnp path and through the Pallas kernel in interpret mode, as its own
 tests run them): 2e-5 max-abs for attention, 2e-5 of max|ref| for the
 flash backward (its model also against an f64 run), 1e-5 of max|ref| for
-dequant_matmul, the pins the kernels are held to on the card.
+dequant_matmul, the pins the kernels are held to on the card; the SSD
+backward's model within half of its 5e-6 pin of the plain backward, and
+within the JAX package's 1e-4 of ``jax.grad`` of its scan.
 
 It also weighs the bf16 routes that ``chip_smoke.py``'s bounds consider: a
 route counts as holding a pin when the model lands within half of it,
@@ -46,14 +48,16 @@ from repro_torch.kernels.split_precision import (
     split,
     split_bf16,
     split_trunc,
+    ssd_backward_emulated,
     ssd_emulated,
     tf32_rna,
 )
-from repro_torch.kernels.ssm_scan.ref import ssd_ref_padded
+from repro_torch.kernels.ssm_scan.ref import ssd_backward_ref_padded, ssd_ref_padded
 
 TOL_FLASH = 2e-5
 TOL_DQMM = 1e-5
 TOL_SSD = 1e-5
+TOL_SSD_BWD = 5e-6  # chip_smoke.TOL_SSD_BWD: of max|plain| per gradient
 LOW_BITS = TF32_LOW_BITS
 CARD_SHARE = 0.5  # of a pin, left to the tensor cores' accumulation
 
@@ -286,3 +290,63 @@ def test_ssd_one_tf32_pass_breaks_the_pin():
     one_pass = ssd_emulated(*(torch.from_numpy(t) for t in arrays), matmul=matmul_tf32)
     want = jax_ssd_ref(*(jnp.asarray(t) for t in arrays), chunk=64)[0]
     assert _max_abs(one_pass, want) > 10 * TOL_SSD * float(np.abs(want).max())
+
+
+SSD_BWD_CASES = [  # (b, s, h, dh, n, dt scale): chip_smoke's sweep (f), cut to the CPU
+    (2, 256, 4, 64, 32, 1.0), (2, 256, 4, 64, 32, 0.01), (1, 512, 8, 64, 64, 1.0),
+    (1, 512, 8, 64, 64, 0.01),
+    (1, 40, 3, 64, 64, 1.0),       # one ragged chunk
+    (1, 1000, 2, 22, 37, 0.01),    # ragged, dh and N below 64 and not multiples of 4
+    (1, 512, 2, 64, 16, 200.0),    # strong decay, a = (-5, -0.5)
+    (1, 256, 10, 64, 64, 0.01),    # a short head group (10 = 8 + 2)
+]
+
+
+def _ssd_bwd_args(b, s, h, dh, n, scale, seed):
+    xs, bm, cm, dt, a = (torch.from_numpy(t) for t in _ssd_inputs(b, s, h, dh, n, seed))
+    if scale == 200.0:
+        a = torch.tensor([-5.0, -0.5])
+    return xs, bm, cm, dt * scale, a, torch.from_numpy(_normal((b, s, h, dh), seed + 5))
+
+
+@pytest.mark.parametrize("b,s,h,dh,n,scale", SSD_BWD_CASES)
+def test_ssd_backward_model_holds_half_the_pin(b, s, h, dh, n, scale):
+    """The backward kernel's arithmetic (``ssd_backward_emulated``: its
+    whole state walks, head groups of 8, truncating split-TF32 products over
+    fresh fragments of 32 k) within half the 5e-6 pin of max|ref| of the plain
+    backward at the kernel's chunk, per gradient, leaving the other half to
+    the tensor cores' accumulation."""
+    args = _ssd_bwd_args(b, s, h, dh, n, scale, 70)
+    model = ssd_backward_emulated(*args)
+    plain = ssd_backward_ref_padded(*args, chunk=64)
+    for name, got, want in zip(("dxs", "dbm", "dcm", "ddt", "da"), model, plain):
+        assert got.shape == want.shape and bool(torch.isfinite(got).all()), name
+        assert _max_abs(got, want) <= CARD_SHARE * TOL_SSD_BWD * float(want.abs().max()), name
+
+
+def test_ssd_backward_model_matches_jax_grad():
+    """The model against ``jax.grad`` of the JAX package's ``ssd_ref`` from
+    the same numpy inputs, within the JAX package's gradient tolerance of
+    1e-4 of max|ref|.  At chunk 64: the JAX gradient is NaN once a chunk
+    decays by more than 88 (its mask comes after exp), as at 128 here."""
+    import jax
+
+    arrays = _ssd_inputs(1, 256, 4, 64, 32, 80)
+    dy = _normal((1, 256, 4, 64), 85)
+    model = ssd_backward_emulated(*(torch.from_numpy(t) for t in arrays), torch.from_numpy(dy))
+
+    def loss(*t):
+        return jnp.sum(jax_ssd_ref(*t, chunk=64)[0] * jnp.asarray(dy))
+
+    want = jax.grad(loss, argnums=tuple(range(5)))(*(jnp.asarray(t) for t in arrays))
+    for got, w in zip(model, want):
+        assert _max_abs(got, w) <= 1e-4 * float(np.abs(np.asarray(w)).max())
+
+
+def test_ssd_backward_one_tf32_pass_breaks_the_pin():
+    """Why the split: one TF32 pass of each product lands ~5e-4 of max|ref| off."""
+    args = _ssd_bwd_args(2, 256, 4, 64, 32, 1.0, 70)
+    one_pass = ssd_backward_emulated(*args, matmul=matmul_tf32)
+    plain = ssd_backward_ref_padded(*args, chunk=64)
+    worst = max(_max_abs(g, w) / float(w.abs().max()) for g, w in zip(one_pass, plain))
+    assert worst > 10 * TOL_SSD_BWD

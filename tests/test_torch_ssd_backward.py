@@ -17,6 +17,10 @@ Tolerances, as fractions of max|ref| per gradient:
   tolerance; the chunkings 64 and 256 against each other alike.
 - One Mamba2 layer (``mamba_forward``, f32 params) against ``jax.grad`` of
   the JAX layer, every param leaf and the input: 1e-4.
+- The backward kernel's decomposition (``ssd_backward_ref_grouped``: whole
+  state walks, dbm / dcm summed by head groups) against
+  ``ssd_backward_ref_padded`` at the kernel's chunk: 1e-6 (the same math
+  summed in other orders; f32 rounding alone is ~4e-7 here).
 """
 
 from __future__ import annotations
@@ -34,8 +38,10 @@ from repro.models import ssm as jssm
 from repro_torch import configs as tconfigs
 from repro_torch.kernels.ssm_scan import ssd_chunked
 from repro_torch.kernels.ssm_scan.ops import SSDScan
+from repro_torch.kernels.ssm_scan.kernel import KERNEL_CHUNK, ssd_chunked_bwd_cuda
 from repro_torch.kernels.ssm_scan.ref import (
     ssd_backward_ref,
+    ssd_backward_ref_grouped,
     ssd_backward_ref_padded,
     ssd_ref,
 )
@@ -194,3 +200,54 @@ def test_mamba_layer_gradients_match_jax():
     errs = {k: _rel(tp[k].grad, np.asarray(jg[k])) for k in sorted(jg)}
     errs["x"] = _rel(tx.grad, np.asarray(jgx))
     assert max(errs.values()) <= 1e-4, errs
+
+
+GROUPED = [  # (b, s, h, dh, n, dt scale)
+    (2, 256, 4, 64, 32, 0.01), (2, 256, 4, 64, 32, 1.0),
+    (1, 1000, 3, 22, 37, 0.01),   # ragged: 16 chunks, the last of 40 rows
+    (1, 1000, 3, 22, 37, 1.0),
+    (1, 200, 2, 16, 8, 0.01),     # the last chunk ragged
+    (1, 40, 3, 64, 64, 1.0),      # one ragged chunk
+    (1, 256, 10, 64, 64, 0.01),   # a full head group and a short one
+    (1, 512, 2, 64, 16, 200.0),   # strong decay
+]
+
+
+@pytest.mark.parametrize("b,s,h,dh,n,dt_scale", GROUPED)
+def test_grouped_backward_matches_the_plain_backward(b, s, h, dh, n, dt_scale):
+    """The backward kernel's decomposition at its chunk: both state walks
+    whole, every chunk's gradients from its h and dH, dbm / dcm summed by
+    groups of 8 heads; dt / 100 lets every carried state and dH reach every
+    later (earlier) chunk."""
+    *args, dy = _torch(_inputs(b, s, h, dh, n, seed=40 + h, dt_scale=dt_scale))
+    if dt_scale == 200.0:
+        args[4] = torch.tensor([-5.0, -0.5])
+    want = ssd_backward_ref_padded(*args, dy, chunk=KERNEL_CHUNK)
+    got = ssd_backward_ref_grouped(*args, dy, chunk=KERNEL_CHUNK, group=8)
+    assert all(g.shape == w.shape and g.dtype == torch.float32 for g, w in zip(got, want))
+    _assert_all(got, want, 1e-6, f"{(b, s, h, dh, n)} x{dt_scale}")
+
+
+@pytest.mark.parametrize("h", [3, 80])
+def test_head_grouped_sums_equal_the_per_head_sums(h):
+    """dbm and dcm summed over groups of 8 heads (a short group at H=3, ten
+    full ones at 80), in head order within a group and in group order
+    after, against the plain backward's sum over all heads at once; the
+    other gradients do not depend on the grouping."""
+    *args, dy = _torch(_inputs(1, 192, h, 16, 16, seed=50 + h, dt_scale=0.01))
+    want = ssd_backward_ref_padded(*args, dy, chunk=KERNEL_CHUNK)
+    grouped = ssd_backward_ref_grouped(*args, dy, chunk=KERNEL_CHUNK, group=8)
+    single = ssd_backward_ref_grouped(*args, dy, chunk=KERNEL_CHUNK, group=h)
+    _assert_all(grouped, want, 1e-6, f"H={h}, groups of 8")
+    for i in (0, 3, 4):
+        assert torch.equal(grouped[i], single[i])
+    for i in (1, 2):
+        assert _rel(grouped[i], single[i]) <= 1e-6
+
+
+def test_backward_kernel_refuses_cpu_tensors():
+    """The kernel's wrapper takes CUDA tensors only: on the CPU it raises
+    before anything is built (``SSDScan`` takes the plain backward there)."""
+    *args, dy = _torch(_inputs(1, 64, 2, 16, 8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ssd_chunked_bwd_cuda(*args, dy, chunk=64)
