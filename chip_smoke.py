@@ -93,8 +93,11 @@ the first fault:
    (495 TFLOP/s) under split-TF32, or 2 bf16 passes (989 TFLOP/s) where one
    operand is an exact int8 code and the other two bf16 pieces; the f32 FMA bound
    is printed beside it (the JSON rows hold only ``bound_ms`` and what was measured).  dequantize is timed at
-   demo_ssm's hop, and its scalar path (the kernel before the vector path,
-   on the same codes at an odd byte offset) against its vector path there,
+   demo_ssm's hop beside the one PyTorch call that computes it (``torch.mul``
+   of the codes viewed (..., nb, block) and the scales, which promotes int8
+   to f32 in the call; held equal to the kernel's output), and its scalar
+   path (the kernel before the vector path, on the same codes at an odd
+   byte offset) against its vector path there,
    interleaved turns of 20 launches, in f32 and bf16; the SSD scan's bound
    counts the fewest operations of any chunking, and the kernel's own Q=64
    count is printed beside it, with
@@ -179,6 +182,34 @@ the first fault:
    adds one more step of each model that runs the port's kernels under
    ``torch.profiler``.
 
+12. entry points -- run after phase 11: (a) ``runtime.pipeline.make_gpipe``
+   in turn on the card over phase 4's demo_transformer (its weights of
+   version 0), cut by ``plan_pipeline`` into 4 stages of one layer over a
+   4-pod bandwidth table like ``examples/torch_pipeline_pods.py``'s, 4
+   microbatches of 4 requests (x (4, 4, 8192, 4096) f32): within 2e-5 of
+   max|ref| of the sequential executor, and with int8 boundaries (block
+   256) within 1e-5 of the chain that round-trips the same three boundaries
+   through the same codec ops; the compressed run must launch flash 16,
+   quantize 12 and dequantize 12 times; seconds a run beside the chain's.
+   (b)-(d) run one after another in one child process, as a user's
+   process would (``repro_torch.launch.serve``'s ``main``, each example as
+   ``__main__``), the launch counts zeroed before each.  (b) the serving
+   CLI: ``--edge --model demo_transformer --codec int8 --requests 16`` (16
+   of 16 served, none lost, a node killed; the quantize, fused receive and
+   flash kernels launched) and ``--edge --tenants demo_mlp,demo_ssm --nodes
+   12 --requests 16`` (both tenants served; the SSD scan launched).  (c)
+   ``--arch gemma2-27b --full --batch 4 --tokens 16``: its tokens/s line,
+   sample tokens in the vocabulary, every decode step's logits finite, and
+   the first step's within 3e-2 of max|ref| of a plain forward of the same
+   token on the same params, its pick that forward's argmax or within 3e-2
+   of its max.  (d) every ``examples/torch_*.py`` with ``--device cuda``:
+   ``torch_train_lm.py`` at 12 steps with a falling loss,
+   ``torch_pipeline_pods.py`` within its bounds.  The first kernel call of
+   each signature in (b)-(d) keeps its inputs and output, which are then
+   held against the plain version at phase 3's and phase 11's pins (the
+   CLI's demo_transformer at hd 8, global and window 128; quantize and the
+   fused receive at d=32; the SSD scan at S=8).
+
 The last three lines are a JSON object of the kernels, the card's name and
 power limit, and the device line.
 Weights and requests are random, drawn from fixed seeds.
@@ -215,6 +246,7 @@ for _var, _sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR",
     os.environ.setdefault(_var, str(ROOT / "build" / _sub))
 # phase 11(d) runs in a child process with this flag, under deterministic cuBLAS
 RESUME_FLAG = "--resume-check"
+ENTRY_FLAG = "--entry-points"  # phase 12 (b)-(d), in a child process
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM, f32 FMA and
 # the dense tensor cores at TF32 and bf16
@@ -1864,23 +1896,6 @@ def ssd_bwd_parity(card: str) -> float:
     return worst
 
 
-def bigram_tokens(vocab: int, batch: int, seq: int, seed: int):
-    """``examples/train_lm.py``'s synthetic stream, drawn in torch on the
-    card: a first token from a Zipf-like law, then a fixed random bigram
-    table (learnable)."""
-    import torch
-
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    table = torch.randint(0, vocab, (vocab,), generator=gen, device="cuda")
-    law = 1.0 / torch.arange(1, vocab + 1, dtype=torch.float32, device="cuda")
-    tok = torch.multinomial(law, batch, replacement=True, generator=gen)
-    out = torch.empty((batch, seq), dtype=torch.int32, device="cuda")
-    for i in range(seq):
-        out[:, i] = tok
-        tok = table[tok]
-    return out
-
-
 def train_config(arch: str, layers: int, experts: int = 0):
     from repro_torch.configs import get_config
 
@@ -1896,8 +1911,9 @@ def train_batch(cfg, batch: int, seq: int, seed: int) -> dict:
     import torch
 
     from repro_torch.models import lm
+    from repro_torch.workload.tokens import bigram_tokens
 
-    out = {"tokens": bigram_tokens(cfg.vocab_size, batch, seq, seed)}
+    out = {"tokens": bigram_tokens(cfg.vocab_size, batch, seq, seed, device="cuda")}
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     if cfg.family == "audio":
         out["frames"] = (torch.randn((batch, seq, cfg.d_model), generator=gen, device="cuda")
@@ -2024,6 +2040,7 @@ def resume_check(card: str, arch: str, layers: int, batch: int, seq: int, seed: 
     from repro_torch.models.common import sorted_leaves
     from repro_torch.runtime import train
     from repro_torch.runtime.checkpoint import Checkpointer
+    from repro_torch.workload.tokens import bigram_tokens
 
     release()
     directory = ROOT / "build" / "train_ckpt"
@@ -2034,7 +2051,7 @@ def resume_check(card: str, arch: str, layers: int, batch: int, seq: int, seed: 
         gen = torch.Generator(device="cuda").manual_seed(seed)
         state = train.init_state(cfg, lm.init_params(cfg, gen, device="cuda", max_pos=seq))
         step = train.make_train_step(cfg, train.OptConfig(**TRAIN_OPT))
-        tokens = {"tokens": bigram_tokens(cfg.vocab_size, batch, seq, seed + 1)}
+        tokens = {"tokens": bigram_tokens(cfg.vocab_size, batch, seq, seed + 1, device="cuda")}
         state, _ = step(state, tokens)
         ck = Checkpointer(directory, keep=1)
         t0 = time.perf_counter()
@@ -2413,6 +2430,386 @@ def ssd_bwd_times(card: str, zamba: dict, err: float) -> dict:
             "bound_by": b_by, "library_ms": None}
 
 
+# phase 12: the entry points a user calls -- the GPipe at phase 4's width,
+# the serving CLI and the examples
+GPIPE_MICRO = 4
+# a 4-pod bandwidth table like examples/torch_pipeline_pods.py's (bytes/s)
+GPIPE_POD_BW = ((0, 12e9, 2e9, 2e9), (12e9, 0, 6e9, 2e9), (2e9, 6e9, 0, 3e9), (2e9, 2e9, 3e9, 0))
+GPIPE_QUANT_BLOCK = 256
+TOL_GPIPE = 2e-5  # uncompressed, of max|ref|: the same kernels in the same order
+TOL_GPIPE_INT8 = 1e-5  # compressed, against the chain through the same codec ops
+CLI_EDGE = ["--edge", "--model", "demo_transformer", "--codec", "int8", "--requests", "16"]
+# at the CLI's default 8 nodes the kill leaves demo_mlp's slice too small to
+# re-place it, in the JAX CLI as in the port: 12 nodes
+CLI_TENANTS = ["--edge", "--tenants", "demo_mlp,demo_ssm", "--nodes", "12", "--requests", "16"]
+CLI_ARCH = ["--arch", "gemma2-27b", "--full", "--batch", "4", "--tokens", "16"]
+EXAMPLES = (("torch_quickstart.py", []), ("torch_edge_serving_failover.py", []),
+            ("torch_serve_lm.py", []), ("torch_train_lm.py", ["--steps", "12"]),
+            ("torch_pipeline_pods.py", []))
+
+
+def gpipe_at_width(card: str) -> dict:
+    """(a) ``make_gpipe`` in turn on the card: phase 4's demo_transformer
+    cut by ``plan_pipeline`` into 4 one-layer stages over 4 pods, 4
+    microbatches of 4 requests, against the sequential executor; then with
+    int8 boundaries against the chain through the same codec ops.  Returns
+    the compressed run's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.model_zoo import demo_transformer
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.quantize.ops import dequantize_int8, quantize_int8
+    from repro_torch.runtime.pipeline import make_gpipe, plan_pipeline, reorder_stage_params
+
+    graph, executor_for_version = demo_transformer(**SERVED, device="cuda")
+    ex = executor_for_version(0)
+    n = SERVED["n_layers"]
+    plan = plan_pipeline(graph, n, stage_capacity=graph.layers[0].param_bytes,
+                         pod_bw=np.array(GPIPE_POD_BW))
+    if plan.cuts != tuple(range(n - 1)):
+        fail(f"plan_pipeline did not cut demo_transformer into one layer a stage: {plan.cuts}")
+    stage_layers = reorder_stage_params(torch.arange(n), plan)  # logical stage j = layer j
+
+    def stage_fn(layer, x):
+        i = int(layer)
+        return ex(i, i + 1, x)
+
+    x = randn((GPIPE_MICRO, MICROBATCH, SERVED["seq"], SERVED["d"]), 300, 0.5)
+
+    def chain(compress: bool):
+        outs = []
+        for m in range(GPIPE_MICRO):
+            y = x[m]
+            for i in range(n):
+                y = ex(i, i + 1, y)
+                if compress and i < n - 1:
+                    q, s = quantize_int8(y, GPIPE_QUANT_BLOCK)
+                    y = dequantize_int8(q, s, y.dtype, block=GPIPE_QUANT_BLOCK)
+            outs.append(y)
+        return torch.stack(outs)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.inference_mode():
+        ref, ref_s = timed(lambda: torch.stack([ex(0, n, x[m]) for m in range(GPIPE_MICRO)]))
+        pipe = make_gpipe(stage_fn, n, n_micro=GPIPE_MICRO, stage_order=plan.stage_order)
+        y, y_s = timed(lambda: pipe(stage_layers, x))
+        ref8, ref8_s = timed(lambda: chain(True))
+        pipe8 = make_gpipe(stage_fn, n, n_micro=GPIPE_MICRO, compress=True,
+                           quant_block=GPIPE_QUANT_BLOCK, stage_order=plan.stage_order)
+        reset_launch_counts()
+        y8, y8_s = timed(lambda: pipe8(stage_layers, x))
+        counts = launch_counts()
+    scale = ref.abs().max().item()
+    err = (y - ref).abs().max().item() / scale
+    err8 = (y8 - ref8).abs().max().item() / ref8.abs().max().item()
+    lossy = (y8 - ref).abs().max().item() / scale
+    if not (y.is_cuda and y.shape == x.shape and torch.isfinite(y).all()
+            and torch.isfinite(y8).all()):
+        fail(f"GPipe output not finite CUDA tensors of {tuple(x.shape)}")
+    if not err <= TOL_GPIPE:
+        fail(f"GPipe vs the sequential executor: {err:.3g} of max|ref| > {TOL_GPIPE}")
+    if not err8 <= TOL_GPIPE_INT8:
+        fail(f"int8 GPipe vs the chain through the same codec: {err8:.3g} of max|ref| > "
+             f"{TOL_GPIPE_INT8}")
+    flash = counts["flash_attention_cuda"]
+    want = {"flash_attention_cuda": n * GPIPE_MICRO,
+            "quantize_int8_cuda": (n - 1) * GPIPE_MICRO,
+            "dequantize_int8_cuda": (n - 1) * GPIPE_MICRO}
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"int8 GPipe launches {counts}, want {want}")
+    say("entry", f"GPipe (make_gpipe in turn) over demo_transformer {SERVED}: plan cuts "
+                 f"{plan.cuts}, stage->pod order {plan.stage_order}, est bottleneck "
+                 f"{plan.est_bottleneck_s * 1e3:.3f} ms; x {tuple(x.shape)} f32 ({GPIPE_MICRO} "
+                 f"microbatches of {MICROBATCH} requests)")
+    say("entry", f"GPipe vs the sequential executor: {err:.3g} of max|ref| "
+                 f"({'equal' if torch.equal(y, ref) else 'not equal'}; pin {TOL_GPIPE}); int8 "
+                 f"boundaries (block {GPIPE_QUANT_BLOCK}) vs the chain through the same codec "
+                 f"ops: {err8:.3g} ({'equal' if torch.equal(y8, ref8) else 'not equal'}; pin "
+                 f"{TOL_GPIPE_INT8}); int8 vs uncompressed {lossy:.3g} of max|ref|")
+    say("entry", f"GPipe seconds a run: in turn {y_s:.3f} (sequential chain {ref_s:.3f}), int8 "
+                 f"in turn {y8_s:.3f} (chain {ref8_s:.3f}); int8 run's launches: flash {flash} "
+                 f"({counts['flash_attention_cuda_windowed']} windowed), quantize "
+                 f"{counts['quantize_int8_cuda']}, dequantize {counts['dequantize_int8_cuda']}, "
+                 f"dequant_matmul {counts['dequant_matmul_cuda']}; {card}")
+    del x, ref, y, ref8, y8, ex, executor_for_version
+    release()
+    return counts
+
+
+class record_kernel_calls:
+    """Wrap every kernel wrapper where its ops module calls it, so that the
+    first call of each signature (its tensors' shapes and dtypes, its other
+    arguments) keeps copies of its arguments and of what the kernel
+    returned; restored on exit.  The launch counts stay the wrappers' own.
+    Yields {(name, signature): (args, kwargs, output)}."""
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+
+        from repro_torch.kernels import KERNEL_WRAPPERS
+
+        copy = lambda v: (v.clone() if torch.is_tensor(v)  # noqa: E731
+                          else tuple(map(copy, v)) if isinstance(v, tuple) else v)
+        self.calls, self.saved = {}, []
+
+        def recorded(fn):
+            def wrapper(*args, **kw):
+                out = fn(*args, **kw)
+                sig = (fn.__name__, tuple((tuple(a.shape), a.dtype) if torch.is_tensor(a) else a
+                                          for a in args), tuple(sorted(kw.items())))
+                if sig not in self.calls:
+                    self.calls[sig] = (copy(args), kw, copy(out))
+                return out
+            return wrapper
+
+        for fn in KERNEL_WRAPPERS:
+            ops = importlib.import_module(fn.__module__.rsplit(".", 1)[0] + ".ops")
+            self.saved.append((ops, fn.__name__, getattr(ops, fn.__name__)))
+            setattr(ops, fn.__name__, recorded(fn))
+        return self.calls
+
+    def __exit__(self, *exc):
+        for ops, name, fn in self.saved:
+            setattr(ops, name, fn)
+
+
+def hold_recorded_calls(calls: dict, what: str) -> None:
+    """Each kernel call ``record_kernel_calls`` kept, its output against the
+    plain version on the same inputs at the pins of phases 3 and 11: quantize
+    and dequantize equal, dequant_matmul TOL_DQMM and the SSD scan TOL_SSD
+    of max|plain|, flash TOL_FLASH max-abs (with lse, of max|plain|), the
+    backward kernels as in phase 11."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.quantize.ref import dequant_matmul_ref, dequantize_ref, quantize_ref
+    from repro_torch.kernels.ssm_scan.kernel import KERNEL_CHUNK, default_segments
+    from repro_torch.kernels.ssm_scan.ref import ssd_ref_segmented
+
+    rel = lambda a, w: ((a - w).abs().max() / w.abs().max()).item()  # noqa: E731
+    for (name, _, _), (args, kw, out) in calls.items():
+        shapes = ", ".join(str(tuple(a.shape)) for a in args if torch.is_tensor(a))
+        if name == "quantize_int8_cuda":
+            ok = all(torch.equal(a, b) for a, b in zip(out, quantize_ref(*args, **kw)))
+            msg = "codes and scales equal"
+        elif name == "dequantize_int8_cuda":
+            ok, msg = torch.equal(out, dequantize_ref(*args, **kw)), "equal"
+        elif name == "dequant_matmul_cuda":
+            err = rel(out, dequant_matmul_ref(*args, **kw))
+            ok, msg = err <= TOL_DQMM, f"{err:.3g} of max|plain| (pin {TOL_DQMM})"
+        elif name == "flash_attention_cuda" and kw.get("lse"):
+            plain = {k: v for k, v in kw.items() if k != "lse"}
+            _, _, o_rel, lse_rel = plain_residuals(*args, *out, plain, what)  # fails on a miss
+            ok, msg = True, f"o {o_rel:.3g}, lse {lse_rel:.3g} of max|plain| (pin {TOL_FLASH})"
+        elif name == "flash_attention_cuda":
+            err = (out - attention_ref(*args, **kw)).abs().max().item()
+            ok, msg = err <= TOL_FLASH, f"max-abs {err:.3g} (pin {TOL_FLASH})"
+        elif name == "ssd_chunked_cuda":
+            b, s, h = args[0].shape[:3]
+            p = kw.get("segments") or default_segments(b, s, h, args[0].device)
+            err = rel(out, ssd_ref_segmented(*args, chunk=KERNEL_CHUNK,
+                                             segments=min(p, -(-s // KERNEL_CHUNK))))
+            ok, msg = err <= TOL_SSD, f"{err:.3g} of max|plain| (pin {TOL_SSD})"
+        elif name == "flash_attention_bwd_cuda":
+            err = flash_bwd_group_errors(args, kw, what)["rel"]
+            ok, msg = err <= TOL_FLASH_BWD, f"{err:.3g} of max|plain| (pin {TOL_FLASH_BWD})"
+        else:  # ssd_chunked_bwd_cuda
+            err = max(ssd_bwd_errors(args, kw["chunk"], what)["rel"])  # fails on a miss
+            ok, msg = True, f"{err:.3g} of max|plain| (pin {TOL_SSD_BWD})"
+        if not ok:
+            fail(f"{what}: {name} ({shapes}) {kw} against its plain version: {msg}")
+        say("entry", f"{what}: {name} ({shapes}) {kw}: {msg}")
+
+
+class watch_decode:
+    """Wrap ``lm.decode_step`` so that the first step keeps its config,
+    params, tokens and logits, and every step whether its logits are all
+    finite; restored on exit."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import lm
+
+        self.lm, self.orig, self.seen = lm, lm.decode_step, {"finite": []}
+
+        def decode_step(cfg, params, caches, tokens, **kw):
+            logits, caches = self.orig(cfg, params, caches, tokens, **kw)
+            if "logits" not in self.seen:
+                self.seen.update(cfg=cfg, params=params, tokens=tokens.clone(),
+                                 logits=logits.clone())
+            self.seen["finite"].append(torch.isfinite(logits).all())
+            return logits, caches
+
+        lm.decode_step = decode_step
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.lm.decode_step = self.orig
+
+
+def hold_first_decode(seen: dict, what: str) -> str:
+    """Every decode step's logits finite, and the first step's within
+    TOL_LM of a plain forward (``forward_hidden`` and ``final_logits``) of
+    the same token on the same params, its greedy pick the forward's
+    argmax or within TOL_LM of its max."""
+    import torch
+
+    from repro_torch.models import lm
+
+    cfg, params, tokens = seen["cfg"], seen["params"], seen["tokens"]
+    with torch.inference_mode():
+        hidden, _ = lm.forward_hidden(cfg, params, {"tokens": tokens})
+        ref = lm.final_logits(cfg, params, hidden[:, -1])
+    dec = seen["logits"][:, -1]
+    scale = ref.abs().max().item()
+    err = (dec - ref).abs().max().item() / scale
+    pick = dec.argmax(-1)
+    short = (ref.max(-1).values - ref.gather(-1, pick[:, None])[:, 0]).max().item() / scale
+    tol = TOL_LM[str(params["embed"].dtype)[6:]]
+    steps = len(seen["finite"])
+    if not (all(bool(f) for f in seen["finite"]) and err <= tol and short <= tol):
+        fail(f"{what}: decode logits finite at every step {[bool(f) for f in seen['finite']]}; "
+             f"the first step {err:.3g} of max|ref| from a plain forward (pin {tol}); its "
+             f"pick {short:.3g} of max|ref| below the forward's max")
+    return (f"logits finite at all {steps} steps; step 1 vs a plain forward of its token "
+            f"{err:.3g} of max|ref| (pin {tol}), picks {pick.tolist()} "
+            f"({'the forward argmax' if short == 0 else f'{short:.3g} below its max'})")
+
+
+def run_in_process(fn) -> tuple[str, dict, float]:
+    """``fn()`` with the launch counts zeroed and its standard output
+    caught; fails unless it returns 0 or None.  Returns (output, launches,
+    wall seconds)."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        try:
+            rc = fn()
+        except SystemExit as e:
+            rc = e.code
+    if rc not in (0, None):
+        fail(f"exited with {rc}: {out.getvalue()[-1500:]}")
+    return out.getvalue(), launch_counts(), time.perf_counter() - t0
+
+
+def launched(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def cli_entry_points(card: str) -> None:
+    """(b) the serving CLI's edge mode on demo_transformer with int8 hops and
+    its tenants mode (demo_ssm: the SSD scan); (c) ``--arch gemma2-27b
+    --full``, whose bf16 params take ~54 GB, its decode held to a plain
+    forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main as serve
+
+    out, counts, wall = run_in_process(lambda: serve(CLI_EDGE))
+    if "served 16/16 requests (lost 0)" not in out or "killing node" not in out:
+        fail(f"launch.serve {' '.join(CLI_EDGE)}: {out[-1500:]}")
+    for name in ("quantize_int8_cuda", "dequant_matmul_cuda", "flash_attention_cuda"):
+        if counts[name] == 0:
+            fail(f"launch.serve {' '.join(CLI_EDGE)} never launched {name}: {counts}")
+    say("entry", f"python -m repro_torch.launch.serve {' '.join(CLI_EDGE)} ({wall:.1f} s; "
+                 f"launches {launched(counts)}): " + " | ".join(out.strip().splitlines()))
+    out, counts, wall = run_in_process(lambda: serve(CLI_TENANTS))
+    served = re.findall(r"^  tenant (\S+): served 16/16, actions", out, re.MULTILINE)
+    if len(served) != 2 or "event routing:" not in out or "killing node" not in out:
+        fail(f"launch.serve {' '.join(CLI_TENANTS)}: {out[-1500:]}")
+    if counts["ssd_chunked_cuda"] == 0:
+        fail(f"launch.serve {' '.join(CLI_TENANTS)} never launched the SSD scan: {counts}")
+    say("entry", f"python -m repro_torch.launch.serve {' '.join(CLI_TENANTS)} ({wall:.1f} s; "
+                 f"launches {launched(counts)}): " + " | ".join(out.strip().splitlines()))
+    with watch_decode() as seen:
+        out, counts, wall = run_in_process(lambda: serve(CLI_ARCH))
+    m = re.search(r"^16 tokens x batch 4 in (\S+)s \((\S+) tok/s\); sample: \[(.*)\]$", out,
+                  re.MULTILINE)
+    vocab = get_config("gemma2-27b").vocab_size
+    if not m or not out.startswith(f"serving gemma2-27b (reduced={'--full' not in CLI_ARCH})"):
+        fail(f"launch.serve {' '.join(CLI_ARCH)}: {out[-1500:]}")
+    tokens = [int(t) for t in m.group(3).split(",")]
+    if len(tokens) != 10 or not all(0 <= t < vocab for t in tokens):
+        fail(f"launch.serve {' '.join(CLI_ARCH)}: sample {tokens} not in the vocabulary {vocab}")
+    held = hold_first_decode(seen, "launch.serve " + " ".join(CLI_ARCH))
+    seen.clear()
+    release()
+    say("entry", f"python -m repro_torch.launch.serve {' '.join(CLI_ARCH)} ({wall:.1f} s; "
+                 f"launches {launched(counts)}): " + " | ".join(out.strip().splitlines())
+                 + f"; {held}; {card}")
+
+
+def example_entry_points(card: str) -> None:
+    """(d) every ``examples/torch_*.py`` on the card, as ``__main__``;
+    train_lm's loss falls, pipeline_pods' errors within its bounds."""
+    import runpy
+
+    own_argv = sys.argv
+    for script, extra in EXAMPLES:
+        path = str(ROOT / "examples" / script)
+        argv = [] if script == "torch_quickstart.py" else ["--device", "cuda"]
+        sys.argv = [path, *argv, *extra]
+
+        def example():  # its module's globals are no exit code
+            runpy.run_path(path, run_name="__main__")
+
+        out, counts, wall = run_in_process(example)
+        sys.argv = own_argv
+        if script == "torch_train_lm.py":
+            losses = [float(x) for x in re.findall(r"^step +\d+  loss (\S+)", out, re.MULTILINE)]
+            if len(losses) < 2 or not all(math.isfinite(x) for x in losses) or not (
+                    losses[-1] < losses[0]):
+                fail(f"{script}: the loss did not fall: {losses}")
+        if script == "torch_pipeline_pods.py":
+            errs = [float(x) for x in re.findall(r"vs sequential = (\S+)$", out, re.MULTILINE)]
+            if len(errs) != 2 or not (errs[0] < 1e-6 and 0 < errs[1] < 0.05):
+                fail(f"{script}: GPipe errors {errs} past the bounds (1e-6; 0 < err < 0.05)")
+        say("entry", f"examples/{script} {' '.join(argv + extra)} ({wall:.1f} s; launches "
+                     f"{launched(counts)}): " + " | ".join(out.strip().splitlines()) + f"; {card}")
+
+
+def entry_points_child(card: str) -> None:
+    """Phase 12 (b)-(d) in one child process, one entry point after another
+    as a user's process would run it: every kernel call of a new signature
+    is kept, then held against its plain version."""
+    with record_kernel_calls() as calls:
+        cli_entry_points(card)
+        example_entry_points(card)
+    hold_recorded_calls(calls, "phase 12's entry points")
+
+
+def phase_entry_points(card: str) -> dict:
+    """Phase 12: (a) the GPipe at phase 4's width, then (b)-(d), the
+    serving CLI and the examples, in a child process.  Returns (a)'s
+    launches."""
+    t0 = time.perf_counter()
+    release()
+    counts = gpipe_at_width(card)
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), ENTRY_FLAG],
+                           env={**os.environ, "PYTHONPATH": str(SRC)}, cwd=str(ROOT),
+                           timeout=900)
+    if child.returncode != 0:
+        fail(f"phase 12's child process (the CLI and the examples) exited with "
+             f"{child.returncode}")
+    say("entry", f"phase 12 ran in {time.perf_counter() - t0:.1f} s; {card}")
+    return counts
+
+
 def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     import torch
 
@@ -2461,11 +2858,18 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
         x.numel() * 4 + x.numel() + sc.numel() * 4, 5 * x.numel(), 0, tuple(x.shape))
 
     qs, ss = quantize_int8_cuda(randn((n, SSM["seq"], SSM["d"]), 12), 256)  # demo_ssm's hop
+    # the one PyTorch call that computes dequantize: torch.mul promotes the
+    # int8 codes to f32 against the scales in the same call
+    one_call = lambda: torch.mul(  # noqa: E731
+        qs.view(*qs.shape[:-1], ss.shape[-1], 256), ss[..., None])
+    if not torch.equal(one_call().view(qs.shape), dequantize_int8_cuda(qs, ss, torch.float32, 256)):
+        fail("dequantize_int8: the kernel differs from torch.mul(codes, scales)")
     row("dequantize_int8", "src/repro_torch/kernels/csrc/quantize.cu",
         "src/repro/kernels/quantize/kernel.py:84",
         lambda: dequantize_int8_cuda(qs, ss, torch.float32, 256),
         lambda: dequantize_ref(qs, ss, torch.float32, 256), 50,
-        qs.numel() * 5 + ss.numel() * 4, qs.numel(), 0, tuple(qs.shape))
+        qs.numel() * 5 + ss.numel() * 4, qs.numel(), 0, tuple(qs.shape),
+        library=cuda_time_ms(one_call, 50))
     # the scalar path, the kernel as it was before the vector path, takes the
     # same codes at an odd byte offset
     qu = torch.empty(qs.numel() + 1, dtype=torch.int8, device="cuda")[1:].view(qs.shape)
@@ -2667,6 +3071,9 @@ def main() -> None:
     if RESUME_FLAG in sys.argv[1:]:  # phase 11(d), in the child resume_in_child starts
         resume_check(card, **RESUME)
         return
+    if ENTRY_FLAG in sys.argv[1:]:  # phase 12 (b)-(d), in the child phase_entry_points starts
+        entry_points_child(card)
+        return
     phase_build()
     errors = phase_parity()
     errors["ssd_chunked"] = phase_parity_ssd()
@@ -2678,6 +3085,7 @@ def main() -> None:
     served_lm = phase_lm(card)
     phase_replicas(card)
     trained = phase_train(card)
+    gpipe = phase_entry_points(card)
     gemma, zamba = served_lm["gemma2-27b"], served_lm["zamba2-2.7b"]
     errors.update({"flash_attention_fwd_gemma2": gemma["errors"]["global"],
                    "flash_attention_fwd_window_gemma2": gemma["errors"]["window"],
@@ -2700,6 +3108,17 @@ def main() -> None:
     for r in rows:  # the SSD scan's shape is zamba2-2.7b's: its launches a prefill too
         if r["name"] == "ssd_chunked":
             r["launches_zamba2_prefill"] = zamba["launches"][2]
+    # phase 12's GPipe (phase 4's model and width, int8 boundaries) launches
+    # these at these rows' shapes (dequantize at demo_transformer's hop)
+    gpipe_launches = {
+        "quantize_int8": gpipe["quantize_int8_cuda"],
+        "dequantize_int8": gpipe["dequantize_int8_cuda"],
+        "flash_attention_fwd": (gpipe["flash_attention_cuda"]
+                                - gpipe["flash_attention_cuda_windowed"]),
+        "flash_attention_fwd_window": gpipe["flash_attention_cuda_windowed"]}
+    for r in rows:
+        if r["name"] in gpipe_launches:
+            r["launches_gpipe"] = gpipe_launches[r["name"]]
     if "--profile" in sys.argv[1:]:
         phase_accuracy(card)
         phase_mma_peak(card)

@@ -139,7 +139,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int H, int G, long long q_sb, long long q_ss, long long k_sb,
                  long long k_ss, long long v_sb, long long v_ss, int causal,
                  int window, float softcap, float scale) {
-  static_assert(HD % 16 == 0, "hd slices are 32 wide, the last one 16");
+  static_assert(HD % 8 == 0, "hd slices are 32 wide, the last one 8, 16 or 24");
   constexpr int MT = Tile<HD>::MT, BQ = Tile<HD>::BQ;
   constexpr int QS = HD + 8, VS = HD + 4;
   constexpr int NKT = BK / 8, NDT = HD / 8;  // 8-key and 8-column fragments
@@ -193,7 +193,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // S = Q K^T: lane (g, t) reads q and k at hd kk + 2t and kk + 2t + 1.
     // Each 32-wide slice of hd is summed on the tensor cores in a fresh
     // fragment and added to S on the FMA units (see P V below); a head dim
-    // that is not a multiple of 32 (80, 112) ends in one 16-wide slice.
+    // that is not a multiple of 32 (80, 112; the demo models' 8) ends in one
+    // narrower slice.
     float sacc[MT][NKT][4] = {};
     const float* qrow = Qs + r0 * QS + 2 * t;
     const float* krow = Ks + g * QS + 2 * t;
@@ -354,6 +355,7 @@ extern "C" int seifer_flash_attention_fwd(
   case D:                                                                        \
     return launch<D>(qf, kf, vf, of, lf, B, S, H, KH, q_sb, q_ss, k_sb, k_ss, v_sb, \
                      v_ss, causal, window, softcap, scale, st);
+    SEIFER_FLASH_CASE(8)
     SEIFER_FLASH_CASE(64)
     SEIFER_FLASH_CASE(80)
     SEIFER_FLASH_CASE(112)

@@ -3,7 +3,8 @@
 
 Each checks what its kernel takes and raises on anything else: float32 CUDA
 tensors, self-attention (``Sq == Skv``), ``hd`` in ``HEAD_DIMS`` (every
-head dim of the LM zoo's configs: 64, 80, 112, 128, 160, 256),
+head dim of the LM zoo's configs: 64, 80, 112, 128, 160, 256; the forward
+also takes 8, the head dim of the demo models at their default width),
 ``H`` a multiple of ``KH``, and q, k, v rows whose (heads, hd) block is
 packed and 16-byte aligned (the kernels stage rows by 16-byte ``cp.async``
 copies) -- the batch and sequence strides may be anything else that keeps
@@ -26,6 +27,8 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (64, 80, 112, 128, 160, 256)
+# the forward's: also demo_transformer's default (d=32, 4 heads)
+FWD_HEAD_DIMS = (8, *HEAD_DIMS)
 # the backward's tiles (csrc/flash_attention_bwd.cu, Cfg): rows a block
 # owns (keys in the dK/dV kernel, queries in the dQ kernel) by head dim, and
 # the rows of the tiles each streams past them
@@ -48,8 +51,10 @@ def _require_rows(t: torch.Tensor, name: str) -> None:
                          f"address {t.data_ptr():#x} and strides {t.stride()}")
 
 
-def _require_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[int, ...]:
-    """Check q, k, v as both kernels take them; returns (B, S, H, KH, hd)."""
+def _require_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 head_dims: tuple[int, ...] = HEAD_DIMS) -> tuple[int, ...]:
+    """Check q, k, v as a kernel taking ``head_dims`` takes them; returns
+    (B, S, H, KH, hd)."""
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _require_rows(t, name)
     b, s, h, hd = q.shape
@@ -57,8 +62,8 @@ def _require_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[int
     if tuple(k.shape) != (b, s, kh, hd) or tuple(v.shape) != (b, s, kh, hd):
         raise ValueError(f"k/v must be ({b}, {s}, KH, {hd}) self-attention, got "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"kernel takes hd in {HEAD_DIMS}, got {hd}")
+    if hd not in head_dims:
+        raise ValueError(f"kernel takes hd in {head_dims}, got {hd}")
     if kh < 1 or h % kh:
         raise ValueError(f"heads {h} must be a multiple of kv heads {kh}")
     if -(-s // 64) > 65535 or b * h >= 2**31:
@@ -82,7 +87,7 @@ def flash_attention_cuda(
     lse: bool = False,
 ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """o (B, S, H, hd) f32; with ``lse=True``, (o, lse (B, H, S) f32)."""
-    b, s, h, kh, hd = _require_qkv(q, k, v)
+    b, s, h, kh, hd = _require_qkv(q, k, v, FWD_HEAD_DIMS)
     o = torch.empty((b, s, h, hd), dtype=torch.float32, device=q.device)
     lse_t = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if lse else None
     if b and s:

@@ -197,6 +197,25 @@ def test_flash_takes_strided_projection_slices(cuda):
     assert (out - ref).abs().max().item() <= 2e-5
 
 
+@pytest.mark.parametrize("s", [256, 100])
+@pytest.mark.parametrize("causal,window,softcap", [(True, 0, 50.0), (True, 128, 50.0),
+                                                   (False, 0, 0.0), (True, 40, 0.0)])
+def test_flash_takes_the_demo_models_hd_8(cuda, s, causal, window, softcap):
+    """demo_transformer at its default width (d=32, 4 heads over 2 kv heads:
+    hd 8), q/k/v as slices of its fused projection, as the serving CLI's
+    default demo_transformer feeds them."""
+    b, h, kh, hd = 2, 4, 2, 8
+    qkv = _randn((b, s, (h + 2 * kh) * hd), 7, cuda)
+    q = qkv[..., : h * hd].reshape(b, s, h, hd)
+    k = qkv[..., h * hd:(h + kh) * hd].reshape(b, s, kh, hd)
+    v = qkv[..., (h + kh) * hd:].reshape(b, s, kh, hd)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)
+    ref = attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                        window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 2e-5
+
+
 @pytest.mark.parametrize("s,g,hd,causal,window,softcap", [
     (1, 1, 64, True, 0, 50.0),        # one query: a tile of 63 masked rows
     (7, 2, 128, True, 0, 50.0),       # S below one 8-key fragment
@@ -1082,3 +1101,82 @@ def test_whisper_cross_length_loss_card_matches_cpu(cuda):
     for got, want in zip(gg, cg):
         assert got.is_cuda and _rel(got, want) <= 1e-4
 
+
+
+def test_gpipe_int8_boundaries_on_the_card_equal_the_cpu(cuda, monkeypatch):
+    """The compressed in-turn GPipe (the quantize and dequantize kernels on
+    every boundary) against the same run on the CPU (the plain versions):
+    an elementwise stage (``x * w + b``, exact in IEEE f32 on both devices)
+    makes the same codes, and the outputs agree within 1e-6."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import pipeline
+
+    sent = {}
+    quantize = pipeline.quantize_int8
+
+    def recorded(y, block):
+        q, s = quantize(y, block)
+        sent.setdefault(y.device.type, []).append((q.cpu(), s.cpu()))
+        return q, s
+
+    monkeypatch.setattr(pipeline, "quantize_int8", recorded)
+
+    def stage_fn(p, x):
+        return x * p[0] + p[1]
+
+    params = _randn((4, 2, 300), 41, "cpu")
+    x = _randn((5, 3, 300), 42, "cpu")
+    order = (2, 0, 3, 1)
+    outs = {}
+    for dev in ("cpu", cuda):
+        pipe = pipeline.make_gpipe(stage_fn, 4, n_micro=5, compress=True, quant_block=128,
+                                   stage_order=order)
+        reset_launch_counts()
+        outs[torch.device(dev).type] = pipe(params.to(dev), x.to(dev))
+        counts = launch_counts()
+    assert (counts["quantize_int8_cuda"], counts["dequantize_int8_cuda"]) == (15, 15)
+    assert outs["cuda"].is_cuda and outs["cuda"].shape == (5, 3, 300)
+    assert len(sent["cpu"]) == len(sent["cuda"]) == 15
+    for (qc, sc), (qg, sg) in zip(sent["cpu"], sent["cuda"]):
+        assert torch.equal(qc, qg) and torch.equal(sc, sg)
+    assert (outs["cuda"].cpu() - outs["cpu"]).abs().max().item() <= 1e-6
+
+
+def test_gpipe_group_mode_refuses_cuda_tensors_on_gloo(cuda, tmp_path):
+    """A gloo group sends CPU tensors: CUDA tensors raise, never go to the host."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.runtime.pipeline import make_gpipe
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        pipe = make_gpipe(lambda p, x: x * p, 1, n_micro=2, group=dist.group.WORLD)
+        with pytest.raises(ValueError, match="lies on cuda"):
+            pipe(torch.ones(1, device=cuda), torch.ones(2, 8, device=cuda))
+        y = pipe(torch.full((1,), 2.0), torch.ones(2, 8))  # the CPU goes through
+        assert torch.equal(y, torch.full((2, 8), 2.0))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_serve_cli_on_the_card_prints_the_cpu_lines(cuda, capsys):
+    """``launch.serve.main`` on demo_transformer with int8 hops on the card:
+    the same lines as on the CPU (virtual clock and plans), the quantize,
+    fused receive and flash kernels launched."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+
+    argv = ["--edge", "--model", "demo_transformer", "--codec", "int8", "--requests", "16"]
+    assert serve.main([*argv, "--device", "cpu"]) == 0
+    want = capsys.readouterr().out
+    reset_launch_counts()
+    assert serve.main([*argv, "--device", "cuda"]) == 0
+    counts = launch_counts()
+    got = capsys.readouterr().out
+    assert got.splitlines() == want.splitlines()
+    assert "served 16/16 requests (lost 0)" in got and "killing node" in got
+    for name in ("quantize_int8_cuda", "dequant_matmul_cuda", "flash_attention_cuda"):
+        assert counts[name] > 0, counts

@@ -14,7 +14,8 @@ import torch  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "scripts").glob("*.py")))
+              + sorted((ROOT / "scripts").glob("*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)|from\s+repro\b(?!_torch))",
     re.MULTILINE,
@@ -53,6 +54,9 @@ def test_serving_loads_no_jax_and_no_repro():
 
 def test_no_port_source_imports_jax_or_repro():
     assert len(PORT_FILES) > 20 and PORT_FILES[-1].exists()
+    assert {p.name for p in PORT_FILES} >= {
+        "serve.py", "pipeline.py", "torch_quickstart.py", "torch_edge_serving_failover.py",
+        "torch_serve_lm.py", "torch_train_lm.py", "torch_pipeline_pods.py"}
     offenders = [str(p.relative_to(ROOT)) for p in PORT_FILES
                  if FORBIDDEN.search(p.read_text())]
     assert offenders == []
