@@ -210,6 +210,31 @@ the first fault:
    CLI's demo_transformer at hd 8, global and window 128; quantize and the
    fused receive at d=32; the SSD scan at S=8).
 
+13. sharding -- run after phase 12: (a) ``launch.mesh.make_test_mesh()``,
+   the one-card (1, 1) mesh (a one-rank NCCL group); gemma2-27b and
+   zamba2-2.7b drawn as phase 8b drew them, params, caches and tokens placed
+   by ``sharding.ShardingPolicy``'s specs (each leaf wrapped, no copy):
+   the prefill through ``make_prefill_step(cfg, policy)`` (launches phase
+   8b's: flash 46, 23 windowed; flash 9 and SSD 54), phase 8b's decode
+   steps through ``make_serve_step(cfg, policy)``; the prefill's and the
+   last step's logits within TOL_LM's bf16 pin of phase 8b's plain-tensor
+   run (bit-equal expected; the difference printed) and the greedy picks
+   equal.  Then phase 11's llama3.2-1b step (B=16 x 4096, microbatches of
+   8) on plain tensors and with its state and batch placed: the loss and
+   every gradient leaf within TOL_LM's f32 pin of the plain step's.  Every
+   kernel call through DTensor of a new signature is held to its plain
+   version at its pin (flash one (batch row, kv-head group) at a time).
+   (b) ``launch.op_cost.OpCostMode`` on (a)'s placed llama step counts
+   exactly the FLOPs of the dry run of the same step on a fake (1, 1) mesh
+   (a child process); t_compute and t_memory from the card's constants
+   beside the plain step's measured time.  (c) ``python -m
+   repro_torch.launch.dryrun`` on llama3.2-1b train_4k, gemma2-27b
+   decode_32k, zamba2-2.7b prefill_32k (16x16) and kimi-k2-1t-a32b
+   train_4k (2x16x16), two child processes (no card needed) started once
+   (a) and (b) are done, so that none of their times is taken beside the
+   children's load on the host; every cell ``ok``, printed as
+   ``launch/report.py``'s rows.
+
 The last three lines are a JSON object of the kernels, the card's name and
 power limit, and the device line.
 Weights and requests are random, drawn from fixed seeds.
@@ -248,12 +273,16 @@ for _var, _sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR",
 RESUME_FLAG = "--resume-check"
 ENTRY_FLAG = "--entry-points"  # phase 12 (b)-(d), in a child process
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM, f32 FMA and
-# the dense tensor cores at TF32 and bf16
-MEM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-TF32_FLOP_PER_S = 495e12
-BF16_FLOP_PER_S = 989e12
+sys.path.insert(0, str(SRC))
+try:  # the kernels' work counts and the card's peaks live in the port
+    from repro_torch.kernels import costs
+    from repro_torch.launch.mesh import HBM_BW as MEM_BYTES_PER_S  # H100 SXM (700 W)
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOP_PER_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_F32 as F32_FLOP_PER_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_TF32 as TF32_FLOP_PER_S
+except ImportError as _e:
+    print(f"FAIL: the port's package is not beside this script ({_e})", file=sys.stderr)
+    sys.exit(1)
 # seconds per FLOP of an f32-accurate product on the tensor cores, by the
 # cheapest route whose model holds the pin with half of it to spare
 # (tests/test_torch_split_precision.py).  Two f32 operands: split-TF32, 3
@@ -1286,18 +1315,20 @@ def serve_lm(card: str, arch: str, batch: int, seq: int, seed: int) -> dict:
     serve = make_serve_step(cfg)
     tok = logits.argmax(-1).to(torch.int32)[:, None]
     reset_launch_counts()
-    steps = []
+    steps, picks = [], []
     for _ in range(LM_DECODE_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tok, caches = serve(params, caches, tok)
         torch.cuda.synchronize()
         steps.append(time.perf_counter() - t0)
+        picks.append(tok.cpu())
     if "--profile" in sys.argv[1:]:
         out = {}
         profile_lm(f"{cfg.name} decode step B={batch}",
                    lambda: out.update(step=serve(params, caches, tok)))
         tok, caches = out["step"]
+        picks.append(tok.cpu())
     with torch.inference_mode():
         last, caches = lm.decode_step(cfg, params, caches, tok)
     dec = launch_counts()
@@ -1314,13 +1345,16 @@ def serve_lm(card: str, arch: str, batch: int, seq: int, seed: int) -> dict:
               f"step after the first ({steps[0] * 1e3:.1f} ms); peak device memory "
               f"{peak / 2**30:.2f} GiB; launches a prefill: flash {got[0]} ({got[1]} windowed), "
               f"SSD {got[2]}; {card}")
+    # phase 13 serves the same params placed on the one-card mesh: what this
+    # plain-tensor run gave, to hold that one to
+    ref = {"logits": logits.cpu(), "picks": picks, "last": last.cpu()}
     del params, caches, logits, tokens, last
     release()
     errs = lm_kernel_parity(arch, flash_calls, ssd_calls)
     del flash_calls, ssd_calls
     release()
     return {"launches": got, "errors": errs, "prefill_s": prefill_s, "decode_ms": decode_ms,
-            "peak_bytes": peak}
+            "peak_bytes": peak, "ref": ref}
 
 
 def phase_lm(card: str) -> dict:
@@ -2282,12 +2316,11 @@ def train_times(card: str, trained: dict) -> list[dict]:
 
         ms = cuda_time_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw), 3)
         plain_ms = cuda_time_ms(plain, 1)
-        if causal:
-            live = (s * (s + 1) // 2 if w <= 0 else sum(min(i + 1, w) for i in range(s))) * b * h
-        else:
-            live = s * s * b * h
-        nbytes = (4 * q.numel() + 4 * k.numel() + lse.numel()) * 4  # q o dO dq, k v dk dv, lse
-        b_ms, b_by, fma_ms = bound_ms(nbytes, 10 * hd * live, F32_PRODUCT_S_PER_FLOP)
+        live = costs.live_pairs(s, causal=causal, window=w) * b * h
+        nbytes = costs.flash_bwd_bytes(b, s, h, kvh, hd)  # q o dO dq, k v dk dv, lse
+        b_ms, b_by, fma_ms = bound_ms(nbytes, costs.flash_bwd_flops(b, s, h, hd, causal=causal,
+                                                                     window=w),
+                                      F32_PRODUCT_S_PER_FLOP)
         design_ms = bound_ms(nbytes, FLASH_BWD_FLOPS_PER_HD * hd * live,
                              F32_PRODUCT_S_PER_FLOP)[0]
         library, lib_name = None, "FlexAttention backward"
@@ -2360,21 +2393,6 @@ def train_times(card: str, trained: dict) -> list[dict]:
     return rows
 
 
-def ssd_bwd_flops(b: int, s: int, h: int, dh: int, n: int, q: int) -> int:
-    """Product FLOPs of the SSD backward at chunk q (ssd_backward_ref's
-    formulas): per head and chunk of r rows, the lower triangles of P = dy
-    x^T, of the scores' products with dy (dx) and of theirs with B and C
-    (dC, dB): r (r + 1) (2 dh + 2 N); dy h, B dH^T and x dH, and the two
-    state recurrences (10 r dh N); the states' decays (2 dh N).  G = C B^T
-    once per (batch row, chunk): heads share it."""
-    per_head, shared = 0, 0
-    for t0 in range(0, s, q):
-        r = min(q, s - t0)
-        per_head += r * (r + 1) * (2 * dh + 2 * n) + 10 * r * dh * n + 2 * dh * n
-        shared += r * (r + 1) * n
-    return b * (h * per_head + shared)
-
-
 def ssd_bwd_design_bytes(b: int, s: int, h: int, dh: int, n: int, group: int) -> int:
     """Bytes the backward's four kernels move (csrc/ssd_scan_bwd.cu): the
     state pass reads xs, dy, dt, bm and cm and writes h and dH of every
@@ -2405,12 +2423,10 @@ def ssd_bwd_times(card: str, zamba: dict, err: float) -> dict:
     n = args[1].shape[-1]
     ms = cuda_time_ms(lambda: ssd_chunked_bwd_cuda(*args, **kw), 10)
     plain_ms = cuda_time_ms(lambda: ssd_backward_ref_padded(*args, chunk=KERNEL_CHUNK), 1)
-    nbytes = (3 * args[0].numel() + 4 * args[1].numel() + 2 * args[3].numel() + 2 * h) * 4
-    q_min = min((2 ** k for k in range(s.bit_length())),
-                key=lambda c: ssd_bwd_flops(b, s, h, dh, n, c))
-    flops = ssd_bwd_flops(b, s, h, dh, n, q_min)
+    flops, nbytes = costs.ssd_bwd_cost(b, s, h, dh, n)
+    q_min = costs.min_flops_chunk(s, lambda c: costs.ssd_bwd_flops(b, s, h, dh, n, c))
     b_ms, b_by, fma_ms = bound_ms(nbytes, flops, F32_PRODUCT_S_PER_FLOP)
-    flops_64 = ssd_bwd_flops(b, s, h, dh, n, KERNEL_CHUNK)
+    flops_64 = costs.ssd_bwd_flops(b, s, h, dh, n, KERNEL_CHUNK)
     design = ssd_bwd_design_bytes(b, s, h, dh, n, HEAD_GROUP)
     design_ms, design_by, _ = bound_ms(design, flops_64, F32_PRODUCT_S_PER_FLOP)
     steps = TRAIN_ZAMBA["steps"]
@@ -2582,12 +2598,13 @@ class record_kernel_calls:
             setattr(ops, name, fn)
 
 
-def hold_recorded_calls(calls: dict, what: str) -> None:
+def hold_recorded_calls(calls: dict, what: str, tag: str = "entry") -> None:
     """Each kernel call ``record_kernel_calls`` kept, its output against the
     plain version on the same inputs at the pins of phases 3 and 11: quantize
     and dequantize equal, dequant_matmul TOL_DQMM and the SSD scan TOL_SSD
-    of max|plain|, flash TOL_FLASH max-abs (with lse, of max|plain|), the
-    backward kernels as in phase 11."""
+    of max|plain|, flash TOL_FLASH max-abs (with lse, of max|plain|) one
+    (batch row, kv-head group) at a time, the backward kernels as in phase
+    11; each printed under ``tag``."""
     import torch
 
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -2606,13 +2623,19 @@ def hold_recorded_calls(calls: dict, what: str) -> None:
         elif name == "dequant_matmul_cuda":
             err = rel(out, dequant_matmul_ref(*args, **kw))
             ok, msg = err <= TOL_DQMM, f"{err:.3g} of max|plain| (pin {TOL_DQMM})"
-        elif name == "flash_attention_cuda" and kw.get("lse"):
-            plain = {k: v for k, v in kw.items() if k != "lse"}
-            _, _, o_rel, lse_rel = plain_residuals(*args, *out, plain, what)  # fails on a miss
-            ok, msg = True, f"o {o_rel:.3g}, lse {lse_rel:.3g} of max|plain| (pin {TOL_FLASH})"
         elif name == "flash_attention_cuda":
-            err = (out - attention_ref(*args, **kw)).abs().max().item()
-            ok, msg = err <= TOL_FLASH, f"max-abs {err:.3g} (pin {TOL_FLASH})"
+            (q, k, v), plain, worst = args, {n: x for n, x in kw.items() if n != "lse"}, 0.0
+            for bs, hs, ks in kv_groups(q, k):
+                group = (q[bs, :, hs], k[bs, :, ks], v[bs, :, ks])
+                if kw.get("lse"):  # fails on a miss
+                    worst = max(worst, *plain_residuals(*group, out[0][bs, :, hs],
+                                                        out[1][bs, hs], plain, what)[2:])
+                else:
+                    ref = attention_ref(*group, **plain)
+                    worst = max(worst, (out[bs, :, hs] - ref).abs().max().item())
+            ok = worst <= TOL_FLASH
+            msg = (f"o and lse {worst:.3g} of max|plain|" if kw.get("lse")
+                   else f"max-abs {worst:.3g}") + f" (pin {TOL_FLASH})"
         elif name == "ssd_chunked_cuda":
             b, s, h = args[0].shape[:3]
             p = kw.get("segments") or default_segments(b, s, h, args[0].device)
@@ -2627,7 +2650,8 @@ def hold_recorded_calls(calls: dict, what: str) -> None:
             ok, msg = True, f"{err:.3g} of max|plain| (pin {TOL_SSD_BWD})"
         if not ok:
             fail(f"{what}: {name} ({shapes}) {kw} against its plain version: {msg}")
-        say("entry", f"{what}: {name} ({shapes}) {kw}: {msg}")
+        say(tag, f"{what}: {name} ({shapes}) {kw}: {msg}")
+    torch.cuda.empty_cache()
 
 
 class watch_decode:
@@ -2810,6 +2834,314 @@ def phase_entry_points(card: str) -> dict:
     return counts
 
 
+# phase 13: the sharding policy on the one-card mesh, the cost counter held
+# to the card's step, the dry run at full size on the production meshes
+SHARD_DRYRUN = (("llama3.2-1b", "train_4k", "single"), ("gemma2-27b", "decode_32k", "single"),
+                ("zamba2-2.7b", "prefill_32k", "single"), ("kimi-k2-1t-a32b", "train_4k", "multi"))
+DRYRUN_TIMEOUT_S = 600  # for both children, from their start
+
+
+def start_dryrun() -> list:
+    """(c) ``SHARD_DRYRUN``'s cells through ``python -m
+    repro_torch.launch.dryrun``, a child process a mesh (a process holds one
+    fake process group), started once (a) and (b) are timed, so that no
+    time of theirs is taken beside the children's load on the host.  Killed
+    at exit if still running."""
+    import atexit
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    procs = []
+    for mesh in ("single", "multi"):
+        cells = [[a, s] for a, s, m in SHARD_DRYRUN if m == mesh]
+        out = ROOT / "build" / f"dryrun_{mesh}.json"
+        out.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells", json.dumps(cells),
+               "--mesh", mesh, "--out", str(out)]
+        procs.append((mesh, out, subprocess.Popen(
+            cmd, cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "PYTHONPATH": str(SRC)})))
+    atexit.register(stop_dryrun, procs)
+    return procs
+
+
+def stop_dryrun(procs: list) -> None:
+    for _, _, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_dryrun(card: str, procs: list, t0: float) -> None:
+    """(c) Wait for the dry run's children; every cell must be ``ok``; each
+    printed as ``report.py``'s row and with its counts."""
+    from repro_torch.launch import report
+
+    for mesh, out, proc in procs:
+        left = max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0))
+        try:
+            log, _ = proc.communicate(timeout=left)
+        except subprocess.TimeoutExpired:
+            fail(f"the dry run on the {mesh} mesh ran past {DRYRUN_TIMEOUT_S} s")
+        if proc.returncode != 0 or not out.exists():
+            fail(f"the dry run on the {mesh} mesh exited {proc.returncode}: {log[-3000:]}")
+    recs = report.load_records([str(out) for _, out, _ in procs])
+    if len(recs) != len(SHARD_DRYRUN) or not all(r.get("ok") for r in recs.values()):
+        fail(f"dry run: {[(k, r.get('error')) for k, r in recs.items() if not r.get('ok')]}")
+    for mesh in ("16x16", "2x16x16"):
+        for line in report.roofline_table(recs, mesh).splitlines():
+            say("dryrun", line)
+    for (arch, shape, mesh), r in sorted(recs.items()):
+        say("dryrun", f"{arch} {shape} @ {mesh}: {r['gflops_per_chip']:.1f} GFLOP, "
+                      f"{r['gbytes_per_chip']:.1f} GB, collectives {r['collective_ops']} "
+                      f"({r['collective_bytes_per_chip'] / 1e9:.2f} GB), peak "
+                      f"{r['hbm_per_chip_gb']} GB a GPU; ran in {r['trace_s']} s on the host")
+    say("dryrun", f"predictions from counts at the constants of an NVIDIA H100 80GB HBM3 at "
+                  f"700 W (launch/mesh.py), not timings; this card: {card}")
+
+
+def same_storage(plain, placed) -> None:
+    """Each placed leaf must wrap its plain tensor's storage (no copy)."""
+    from repro_torch.models.common import tree_leaves
+
+    for a, b in zip(tree_leaves(plain), tree_leaves(placed)):
+        if hasattr(b, "to_local") and b.to_local().data_ptr() != a.data_ptr():
+            fail("the one-card mesh copied a leaf it should have wrapped")
+
+
+def shard_serve(card: str, mesh, arch: str, batch: int, seq: int, seed: int, ref: dict) -> None:
+    """(a) ``arch`` whole, its params drawn as phase 8b drew them and placed
+    by the policy on the one-card mesh with no copy: a prefill (its flash
+    and SSD launches phase 8b's), then phase 8b's decode steps; the logits
+    and the greedy picks held to phase 8b's plain-tensor run."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve import make_prefill_step, make_serve_step
+    from repro_torch.sharding import policy as pol
+
+    release()
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = lm.init_params(cfg, gen, device="cuda", max_pos=seq)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device="cuda")
+    policy = pol.ShardingPolicy(cfg, mesh)
+    placed = pol.place(params, pol.param_shardings(cfg, mesh, params), mesh)
+    same_storage(params, placed)
+    place_tokens = lambda t: pol.place({"t": t}, pol.batch_shardings(mesh, {"t": t}),  # noqa: E731
+                                       mesh)["t"]
+    with record_kernel_calls() as calls:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = make_prefill_step(cfg, policy)(placed, {"tokens": place_tokens(tokens)})
+        logits = logits.full_tensor()
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        c = launch_counts()
+        got = (c["flash_attention_cuda"], c["flash_attention_cuda_windowed"],
+               c["ssd_chunked_cuda"])
+        if got != LM_LAUNCHES[arch]:
+            fail(f"{arch} prefill on the mesh launched (flash, windowed, SSD) {got}, not "
+                 f"{LM_LAUNCHES[arch]}")
+        caches = lm.init_caches(cfg, batch, seq, device="cuda")
+        placed_caches = pol.place(caches, pol.cache_shardings(cfg, mesh, caches, batch), mesh)
+        same_storage(caches, placed_caches)
+        serve = make_serve_step(cfg, policy)
+        tok = place_tokens(logits.argmax(-1).to(torch.int32)[:, None])
+        picks = []
+        t0 = time.perf_counter()
+        for _ in ref["picks"]:
+            tok, placed_caches = serve(placed, placed_caches, tok)
+            picks.append(tok.full_tensor().cpu())
+        decode_ms = (time.perf_counter() - t0) / len(picks) * 1e3
+        with torch.no_grad(), policy.scope():
+            last, placed_caches = lm.decode_step(cfg, placed, placed_caches, tok)
+        last = last.full_tensor()
+    rel = lambda a, w: ((a.float().cpu() - w.float()).abs().max()  # noqa: E731
+                        / w.float().abs().max()).item()
+    d_prefill, d_last = rel(logits, ref["logits"]), rel(last, ref["last"])
+    equal = torch.equal(logits.cpu(), ref["logits"]) and torch.equal(last.cpu(), ref["last"])
+    same_picks = all(torch.equal(a, b) for a, b in zip(picks, ref["picks"]))
+    pin = TOL_LM["bfloat16"]  # the model computes in bf16
+    if not (max(d_prefill, d_last) <= pin and same_picks):
+        fail(f"{arch} on the one-card mesh against phase 8b's plain tensors: prefill logits "
+             f"{d_prefill:.3g}, last decode logits {d_last:.3g} of max|ref| (pin {pin}); "
+             f"greedy picks equal: {same_picks}")
+    say("shard", f"{arch} on the (1, 1) mesh (params, caches, tokens placed by the policy, no "
+                 f"copy): prefill B={batch} x S={seq} {prefill_s:.3f} s, launches flash {got[0]} "
+                 f"({got[1]} windowed), SSD {got[2]}; {len(picks)} decode steps "
+                 f"{decode_ms:.1f} ms a step; against phase 8b's plain tensors: prefill logits "
+                 f"{d_prefill:.3g}, last decode step's logits {d_last:.3g} of max|ref| (pin "
+                 f"{pin}; bit-equal: {equal}), greedy picks equal: {same_picks}; {card}")
+    del params, placed, caches, placed_caches, logits, last, tokens, tok
+    release()
+    hold_recorded_calls(calls, f"phase 13 {arch}, through DTensor", "shard")
+    del calls
+    release()
+
+
+def shard_train(card: str, mesh) -> dict:
+    """(a) phase 11's llama3.2-1b step (``TRAIN_LLAMA``'s batch, microbatch
+    and seed) once on plain tensors and once with its state and batch placed
+    by the policy on the one-card mesh, the second under ``OpCostMode``;
+    the loss and every gradient leaf (as the update receives them, f32)
+    held to the plain step's.  Returns the placed step's count, the plain
+    step's seconds and the config."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.op_cost import OpCostMode
+    from repro_torch.models import lm
+    from repro_torch.models.common import NO_SHARDING, sorted_leaves
+    from repro_torch.runtime import train
+    from repro_torch.sharding import policy as pol
+
+    kw = TRAIN_LLAMA
+    cfg = train_config(kw["arch"], kw["layers"])
+
+    def run(placed: bool):
+        release()
+        gen = torch.Generator(device="cuda").manual_seed(kw["seed"])
+        state = train.init_state(cfg, lm.init_params(cfg, gen, device="cuda", max_pos=kw["seq"]))
+        tokens = train_batch(cfg, kw["batch"], kw["seq"], kw["seed"] + 1)
+        policy = NO_SHARDING
+        if placed:
+            policy = pol.ShardingPolicy(cfg, mesh)
+            state = pol.place(state, pol.state_shardings(cfg, mesh, state), mesh)
+            tokens = pol.place(tokens, pol.batch_shardings(mesh, tokens), mesh)
+        opt = train.OptConfig(**TRAIN_OPT, microbatch=kw["microbatch"],
+                              accum_dtype=cfg.opt_state_dtype)
+        step = train.make_train_step(cfg, opt, policy)
+        seen, update = {}, train.adamw_update
+
+        def keep_grads(cfg_, opt_, state_, grads):
+            seen["grads"] = grads
+            return update(cfg_, opt_, state_, grads)
+
+        counter = OpCostMode() if placed else None
+        train.adamw_update = keep_grads
+        try:
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if counter is None:
+                _, metrics = step(state, tokens)
+            else:
+                with counter:
+                    _, metrics = step(state, tokens)
+            loss = metrics["loss"]
+            loss = (loss.full_tensor() if hasattr(loss, "full_tensor") else loss).item()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            train.adamw_update = update
+        c = launch_counts()
+        if (c["flash_attention_cuda"], c["flash_attention_bwd_cuda"]) != kw["launches"][:2]:
+            fail(f"llama3.2-1b step ({'placed' if placed else 'plain'}) launched flash "
+                 f"{c['flash_attention_cuda']} / {c['flash_attention_bwd_cuda']}, not "
+                 f"{kw['launches'][:2]}")
+        grads = sorted_leaves(pol.to_local(seen["grads"]) if placed else seen["grads"])
+        del state, tokens, step, seen
+        return loss, grads, secs, counter
+
+    loss0, g0, secs0, _ = run(False)
+    with record_kernel_calls() as calls:  # the calls through DTensor
+        loss1, g1, secs1, counter = run(True)
+    d_loss = abs(loss1 - loss0) / abs(loss0)
+    d_grads = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                  for a, b in zip(g1, g0))
+    equal = loss1 == loss0 and all(torch.equal(a, b) for a, b in zip(g1, g0))
+    pin = TOL_LM["float32"]  # the gradients accumulate in f32
+    if not max(d_loss, d_grads) <= pin:
+        fail(f"llama3.2-1b step on the one-card mesh against the plain step: loss {d_loss:.3g}, "
+             f"gradient leaves {d_grads:.3g} of max|ref| (pin {pin})")
+    say("shard", f"llama3.2-1b whole, B={kw['batch']} x S={kw['seq']} as microbatches of "
+                 f"{kw['microbatch']}, state and batch placed by the policy on the (1, 1) mesh: "
+                 f"loss {loss1:.6f} (plain {loss0:.6f}), {len(g0)} gradient leaves; loss "
+                 f"{d_loss:.3g}, leaves {d_grads:.3g} of max|ref| from the plain step (pin {pin}; "
+                 f"bit-equal: {equal}); the plain step {secs0:.3f} s, the placed one under "
+                 f"OpCostMode {secs1:.3f} s; {card}")
+    del g0, g1
+    release()
+    hold_recorded_calls(calls, "phase 13 llama3.2-1b, through DTensor", "shard")
+    del calls
+    release()
+    return {"cost": counter.result(), "secs": secs0, "cfg": cfg}
+
+
+DRY_LLAMA = """
+from repro_torch.configs import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_fake_mesh
+from repro_torch.launch.op_cost import OpCostMode
+import chip_smoke
+cfg = chip_smoke.train_config(chip_smoke.TRAIN_LLAMA["arch"], chip_smoke.TRAIN_LLAMA["layers"])
+kw = chip_smoke.TRAIN_LLAMA
+mesh = make_fake_mesh((1, 1), ("data", "model"))
+step, args, cfg, shape = dryrun.build_step(
+    cfg, ShapeConfig("train", kw["seq"], kw["batch"], "train"), mesh, microbatch=kw["microbatch"])
+with OpCostMode() as m:
+    step(*args)
+print("DRY", m.result().flops, m.result().bytes)
+"""
+
+
+def shard_costs(card: str, trained: dict) -> None:
+    """(b) ``OpCostMode`` on (a)'s placed llama step against the dry run of
+    the same step on a fake (1, 1) mesh (meta shards, in a child process):
+    the FLOPs must be equal; the roofline terms from the card's constants
+    beside the plain step's measured time."""
+    cost, secs = trained["cost"], trained["secs"]
+    child = subprocess.run([sys.executable, "-c", DRY_LLAMA], capture_output=True, text=True,
+                           cwd=str(ROOT), env={**os.environ, "PYTHONPATH": f"{SRC}:{ROOT}"},
+                           timeout=600)
+    if child.returncode != 0 or "DRY" not in child.stdout:
+        fail(f"the fake (1, 1) dry run of the llama step failed: {child.stderr[-3000:]}")
+    dry_flops, dry_bytes = (float(x) for x in child.stdout.split("DRY")[-1].split())
+    if dry_flops != cost.flops:
+        fail(f"OpCostMode counted {cost.flops:.6g} FLOPs on the card's llama step, the dry run "
+             f"{dry_flops:.6g}")
+    t_compute, t_memory = cost.flops / BF16_FLOP_PER_S, cost.bytes / MEM_BYTES_PER_S
+    say("shard", f"llama3.2-1b step counted on the card: {cost.flops / 1e9:.1f} GFLOP (the fake "
+                 f"(1, 1) dry run: {dry_flops / 1e9:.1f}, equal), {cost.bytes / 1e9:.1f} GB "
+                 f"(dry run {dry_bytes / 1e9:.1f}); t_compute {t_compute * 1e3:.1f} ms at the "
+                 f"dense bf16 peak, t_memory {t_memory * 1e3:.1f} ms at HBM's rate; the step "
+                 f"measured {secs * 1e3:.1f} ms, {max(t_compute, t_memory) / secs:.1%} of its "
+                 f"roofline; {card}")
+
+
+def phase_sharding(card: str, served_lm: dict) -> None:
+    """Phase 13: (a) gemma2-27b and zamba2-2.7b served and llama3.2-1b
+    trained on the one-card mesh, (b) the cost counter against the dry run,
+    then (c) the dry run's children started and read."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        mesh = make_test_mesh()
+        if tuple(mesh.shape) != (1, 1):
+            fail(f"make_test_mesh() on one card is {tuple(mesh.shape)}, not (1, 1)")
+        for m in LM_MODELS:
+            shard_serve(card, mesh, **m, ref=served_lm[m["arch"]]["ref"])
+        trained = shard_train(card, mesh)
+        shard_costs(card, trained)
+        say("shard", f"(a) and (b) ran in {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        procs = start_dryrun()
+        finish_dryrun(card, procs, t1)
+        say("shard", f"(c) ran in {time.perf_counter() - t1:.1f} s")
+    finally:
+        stop_dryrun(procs)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    say("shard", f"phase 13 ran in {time.perf_counter() - t0:.1f} s; {card}")
+
+
 def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     import torch
 
@@ -2919,7 +3251,7 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
         b, s, h, hd = fq.shape
         kvh = fk.shape[2]
         g = h // kvh
-        io_bytes = (fq.numel() * 2 + fk.numel() * 2) * 4  # q, o, k, v read/written once
+        io_bytes = costs.flash_fwd_bytes(b, s, h, kvh, hd)  # q, o, k, v read/written once
         for name, window, softcap, label in variants:
             def plain(window=window, softcap=softcap):
                 for j in range(kvh):
@@ -2928,8 +3260,7 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
 
             kernel = lambda w=window, c=softcap: flash_attention_cuda(  # noqa: E731
                 fq, fk, fv, causal=True, window=w, softcap=c)
-            live = (s * (s + 1) // 2 if window <= 0
-                    else sum(min(i + 1, window) for i in range(s)))
+
             library, flex = None, None
             t0 = time.perf_counter()
             try:  # a yardstick only: its failure is reported, never timed
@@ -2949,7 +3280,8 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
                 torch.cuda.empty_cache()
             row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention/kernel.py:96", kernel, plain, 3,
-                io_bytes, 4 * hd * live * b * h, F32_PRODUCT_S_PER_FLOP,
+                io_bytes, costs.flash_fwd_flops(b, s, h, hd, window=window),
+                F32_PRODUCT_S_PER_FLOP,
                 (b, s, h, kvh, hd, label), library=library)
 
     qkv = randn((n, s, proj), 14)  # demo_transformer's: slices of the fused projection
@@ -2977,21 +3309,20 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     h, dh, ns, sq = SSM["heads"], SSM["d"] // SSM["heads"], SSM["state"], SSM["seq"]
     args = ssd_case(n, sq, h, dh, ns, 21)
     q = KERNEL_CHUNK
-    nbytes = (sum(t.numel() for t in args) + args[0].numel()) * 4  # inputs once, y once
-    # the bound counts the fewest operations of any chunking of the same scan
-    q_min = min((2 ** k for k in range(sq.bit_length())),
-                key=lambda c: ssd_flops(n, sq, h, dh, ns, c))
+    # inputs once, y once; the fewest operations of any chunking of the same scan
+    flops_min, nbytes = costs.ssd_fwd_cost(n, sq, h, dh, ns)
+    q_min = costs.min_flops_chunk(sq, lambda c: costs.ssd_flops(n, sq, h, dh, ns, c))
     p = default_segments(n, sq, h, args[0].device)
     row("ssd_chunked", "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "src/repro/kernels/ssm_scan/kernel.py:66",
         lambda: ssd_chunked_cuda(*args, chunk=sq), lambda: ssd_ref(*args, chunk=q), 10,
-        nbytes, ssd_flops(n, sq, h, dh, ns, q_min), F32_PRODUCT_S_PER_FLOP,
+        nbytes, flops_min, F32_PRODUCT_S_PER_FLOP,
         (n, sq, h, dh, ns, f"kernel and plain at Q={q}, bound at Q={q_min}"))
-    flops_q = ssd_flops(n, sq, h, dh, ns, q)
+    flops_q = costs.ssd_flops(n, sq, h, dh, ns, q)
     b_ms, b_by, fma_ms = bound_ms(nbytes, flops_q, F32_PRODUCT_S_PER_FLOP)
     say("times", f"ssd_chunked at this design's Q={q}: {flops_q / 1e9:.2f} GFLOP, bound "
                  f"{b_ms:.4f} ms ({b_by}, {b_ms / rows[-1]['ms']:.1%} of it; f32 FMA bound "
-                 f"{fma_ms:.4f} ms), against {ssd_flops(n, sq, h, dh, ns, q_min) / 1e9:.2f} "
+                 f"{fma_ms:.4f} ms), against {flops_min / 1e9:.2f} "
                  f"GFLOP at Q={q_min}; {card}")
     d_flops = ssd_design_flops(n, sq, h, dh, ns, q, p)
     d_bytes = ssd_design_bytes(n, sq, h, dh, ns, q, p)
@@ -3008,17 +3339,6 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     return rows
 
 
-def ssd_flops(b: int, s: int, h: int, dh: int, n: int, q: int) -> int:
-    """FLOPs of the chunked scan at chunk q: C B^T and scores @ x over each
-    chunk's lower triangle, C state^T and x^T (B decay) in full, and the
-    state's decay once per chunk."""
-    per_head = 0
-    for t0 in range(0, s, q):
-        r = min(q, s - t0)
-        per_head += r * (r + 1) * (n + dh) + 4 * r * n * dh + n * dh
-    return b * h * per_head
-
-
 def _segments(s: int, q: int, p: int) -> list[list[int]]:
     """Row counts of the chunks of each of the p segments (ref.segment_starts)."""
     rows = [min(q, s - t0) for t0 in range(0, s, q)]
@@ -3033,7 +3353,7 @@ def ssd_design_flops(b: int, s: int, h: int, dh: int, n: int, q: int, p: int) ->
     update = lambda r: 2 * r * n * dh + n * dh  # noqa: E731
     per_head = 0
     for i, seg in enumerate(_segments(s, q, p)):
-        per_head += ssd_flops(1, sum(seg), 1, dh, n, q) - update(seg[-1])  # seg is whole chunks
+        per_head += costs.ssd_flops(1, sum(seg), 1, dh, n, q) - update(seg[-1])  # seg is whole chunks
         if i + 1 < p:
             per_head += sum(update(r) for r in seg)
         per_head += 2 * i * n * dh
@@ -3054,11 +3374,6 @@ def ssd_design_bytes(b: int, s: int, h: int, dh: int, n: int, q: int, p: int) ->
 def main() -> None:
     start = time.perf_counter()
     card = phase_device()
-    sys.path.insert(0, str(SRC))
-    try:
-        import repro_torch  # noqa: F401
-    except ImportError as e:
-        fail(f"the port's package is not beside this script ({e})")
     import torch._dynamo
 
     from repro_torch.core.execution import resolve_device
@@ -3086,6 +3401,7 @@ def main() -> None:
     phase_replicas(card)
     trained = phase_train(card)
     gpipe = phase_entry_points(card)
+    phase_sharding(card, served_lm)
     gemma, zamba = served_lm["gemma2-27b"], served_lm["zamba2-2.7b"]
     errors.update({"flash_attention_fwd_gemma2": gemma["errors"]["global"],
                    "flash_attention_fwd_window_gemma2": gemma["errors"]["window"],

@@ -6,6 +6,9 @@ spec down to the kernels.  Here the knob is the tensor's device:
 - a CUDA tensor always goes to the hand-written kernel (there is no
   fallback: a shape the kernel cannot take raises);
 - a CPU tensor always goes to the kernel's plain PyTorch version;
+- a meta tensor (shapes only: the dry run, ``launch/dryrun.py``) takes the
+  kernel's path, where the kernels' custom ops give their outputs' shapes
+  and dtypes (``kernels/library.py``);
 - any other device raises.
 
 ``resolve_device`` is what the entry points call on the caller's device
@@ -44,10 +47,11 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
 
 def on_kernel_path(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on CUDA (run the kernel), False when every
-    tensor lies on the CPU (run the plain version); raises otherwise."""
+    """True when every tensor lies on CUDA (run the kernel) or every one on
+    the meta device (the kernel's shapes), False when every tensor lies on
+    the CPU (run the plain version); raises otherwise."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cuda"}:
+    if kinds == {"cuda"} or kinds == {"meta"}:
         return True
     if kinds == {"cpu"}:
         return False

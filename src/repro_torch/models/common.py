@@ -14,6 +14,7 @@ from ``jax.random``'s (another generator); the distributions are the same.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 from typing import Any, Callable
@@ -22,19 +23,38 @@ import numpy as np
 import torch
 
 class NoSharding:
-    """The sharding layer's activation hook, as an identity: it keeps the
-    JAX package's signatures (sharding policies come with a later slice)."""
+    """The sharding layer's activation hook, as an identity: the default of
+    every model and step function (``repro_torch.sharding.ShardingPolicy``
+    places activations on a mesh)."""
+
+    dtensors = False  # the step's tensors are plain
 
     def act(self, x: torch.Tensor, kind: str) -> torch.Tensor:
         return x
+
+    def scope(self):
+        """The context a step runs in: none."""
+        return contextlib.nullcontext()
 
 
 NO_SHARDING = NoSharding()
 
 
+def is_dtensor(x) -> bool:
+    """True for a DTensor (imports DTensor only where one can exist)."""
+    if type(x) is torch.Tensor or not isinstance(x, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def _fill(out: torch.Tensor, lead: tuple[int, ...], draw: Callable[[torch.Tensor], None]) -> torch.Tensor:
     """Fill ``out`` (lead + shape) one ``shape`` slice at a time: ``draw``
-    fills an f32 scratch slice, which is then cast into ``out``."""
+    fills an f32 scratch slice, which is then cast into ``out``.  A meta
+    tensor (shape-only init, ``launch/specs.py``) is returned undrawn."""
+    if out.device.type == "meta":
+        return out
     scratch = torch.empty(out.shape[len(lead):], dtype=torch.float32, device=out.device)
     for idx in itertools.product(*(range(n) for n in lead)):
         draw(scratch)
@@ -76,9 +96,61 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., d) @ w (d, ...) in the working dtype.  bf16 products sum in
     f32 (``resolve_device`` turns the library's reduced-precision bf16
     reductions off), as the JAX package's ``preferred_element_type=f32``;
-    the result is rounded once to x's dtype."""
+    the result is rounded once to x's dtype.
+
+    A DTensor w (d, a, b) sharded on b but not a is multiplied as (d, b, a):
+    DTensor cannot flatten (a, b) with only b sharded and unflatten it
+    again."""
+    if is_dtensor(w) and w.dim() == 3 and sharded_dims(w) & {1, 2} == {2}:
+        out = x @ w.transpose(1, 2).reshape(w.shape[0], -1)
+        return out.reshape(*x.shape[:-1], w.shape[2], w.shape[1]).transpose(-1, -2)
     out = x @ w.reshape(w.shape[0], -1)
     return out.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def whole_last_dim(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its last dim gathered over the mesh dims that shard
+    it; anything else as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    last = t.dim() - 1
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_shard(last) else p
+                                          for p in t.placements])
+
+
+def on_batch_shards(fn: Callable, batched: tuple, tree: Any, n_out: int):
+    """``fn(*batched, tree)`` of DTensors run on each rank's batch shard
+    (``local_map``): every ``batched`` tensor (batch first) split over the
+    mesh dims the first one's batch is split over, each tensor of ``tree``
+    (weights) gathered whole, its gradient a partial sum over those dims,
+    and each of fn's ``n_out`` output tensors split by batch again.  For a
+    layer whose heads the model axis does not divide, computed per batch
+    row: fn sees plain tensors, so DTensor's reshape rules never meet it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    rows = [p == Shard(0) for p in batched[0].placements]
+    split = [Shard(0) if r else Replicate() for r in rows]
+    leaves = tree_leaves(tree)
+
+    def local(*args):
+        it = iter(args[len(batched):])
+        return fn(*args[:len(batched)], tree_map(lambda _: next(it), tree))
+
+    run = local_map(local, out_placements=split if n_out == 1 else tuple([split] * n_out),
+                    in_placements=tuple([split] * len(batched)
+                                        + [[Replicate()] * len(rows)] * len(leaves)),
+                    in_grad_placements=tuple([split] * len(batched) + [
+                        [Partial() if r else Replicate() for r in rows]] * len(leaves)),
+                    redistribute_inputs=True)
+    return run(*batched, *leaves)
+
+
+def sharded_dims(t) -> set[int]:
+    """The dims a DTensor is sharded on."""
+    return {p.dim for p in t.placements if p.is_shard()}
 
 
 # Activations, written op for op as ``jax.nn`` writes them: each op rounds

@@ -20,7 +20,15 @@ import dataclasses
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import dense_init, full, gelu, matmul, silu
+from repro_torch.models.common import (
+    sharded_dims,
+    dense_init,
+    full,
+    gelu,
+    is_dtensor,
+    matmul,
+    silu,
+)
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -147,6 +155,12 @@ def qkv_proj(cfg, p: dict, x: torch.Tensor):
 
 def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
     wo = p["wo"]
+    if is_dtensor(wo) and sharded_dims(wo) & {0, 1} == {1}:
+        # hd sharded, heads not: DTensor cannot flatten (H, hd) so; sum over
+        # (hd, H) instead
+        out = (o.transpose(-1, -2).reshape(*o.shape[:-2], -1)
+               @ wo.transpose(0, 1).reshape(-1, wo.shape[-1]))
+        return out.to(o.dtype)
     out = o.reshape(*o.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
     return out.to(o.dtype)
 
@@ -195,6 +209,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     q.k products summed in f32 (the bf16 cache is upcast for the product,
     which is exact: the JAX package's ``preferred_element_type=f32``), the
     softmax weights rounded to the cache's dtype before P V, f32 sums."""
+    if is_dtensor(k_cache) and not any(p.is_shard(1) for p in k_cache.placements):
+        return _decode_attention_by_shard(q, k_cache, v_cache, valid, softcap)
     b, _, h, hd = q.shape
     kh = k_cache.shape[2]
     qg = (_gqa_split(q, kh).float() * hd**-0.5).to(q.dtype)
@@ -204,6 +220,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     w = torch.softmax(logits, dim=-1).to(v_cache.dtype)
     o = torch.einsum("bhgqs,bshk->bqhgk", w.float(), v_cache.float())
     return o.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def _decode_attention_by_shard(q, k_cache, v_cache, valid, softcap: float):
+    """``decode_attention`` of DTensors whose cache's sequence is whole, run
+    on each rank's shards (``local_map``): q placed as the cache (batch,
+    heads), so each shard's rows and GQA groups are its own.  DTensor's
+    einsum would flatten the batch and heads, both sharded, which torch
+    2.11 refuses."""
+    from torch.distributed.tensor.experimental import local_map
+
+    pq = list(q.placements)
+    run = local_map(lambda a, k, v, m: decode_attention(a, k, v, m, softcap), out_placements=pq,
+                    in_placements=(pq, list(k_cache.placements), list(v_cache.placements), None),
+                    redistribute_inputs=True)
+    return run(q, k_cache, v_cache, valid)
 
 
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -42,6 +42,7 @@ from repro_torch.models.common import (
     dense_init,
     embed_init,
     full,
+    is_dtensor,
     tree_index,
     tree_map,
 )
@@ -132,13 +133,21 @@ def _init_group(cfg, gen, lead, device) -> dict:
     return _init_block(cfg, gen, lead, device, cross=cfg.family == "audio")
 
 
-def init_params(cfg, generator: torch.Generator, *, device: str | torch.device = "cuda",
-                max_pos: int = 32768) -> dict:
+def _device(device: str | torch.device) -> torch.device:
+    """``resolve_device``'s device, or the meta device: shapes and dtypes
+    only, no storage and no draws (``launch/specs.py``)."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)
+
+
+def init_params(cfg, generator: torch.Generator | None, *,
+                device: str | torch.device = "cuda", max_pos: int = 32768) -> dict:
     """Random params of ``cfg`` on ``device``, drawn from ``generator`` (which
     must live on that device), in the JAX package's tree, shapes and dtypes.
     Values are drawn one layer at a time in f32 and cast, so a full-width
-    model needs its own bytes plus one layer's f32 tensor."""
-    dev = resolve_device(device)
+    model needs its own bytes plus one layer's f32 tensor.  On the meta
+    device nothing is drawn (``generator`` may be None)."""
+    dev = _device(device)
     n_groups, _ = group_layout(cfg)
     params: dict[str, Any] = {
         "embed": embed_init(generator, cfg.vocab_size, cfg.d_model, device=dev),
@@ -233,11 +242,56 @@ def _gemma_scale(cfg, x: torch.Tensor) -> torch.Tensor:
     return x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
 
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """table[tokens].  A DTensor table is looked up shard by shard
+    (``local_map``): each rank takes the rows of its vocabulary shard that
+    its tokens hit, zeros elsewhere, and the vocabulary's mesh dims sum
+    them at once (one row and zeros: exact); the table is gathered over its
+    other dims (the FSDP gather).  DTensor's own rules for the index, and for the
+    embedding's masked partial sums, fail on the backward (torch 2.11) or
+    once the batch is redistributed (torch 2.13)."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    vocab = [p == Shard(0) for p in table.placements]  # mesh dims that split the vocabulary
+    batch = ([p == Shard(0) for p in tokens.placements] if is_dtensor(tokens)
+             else [False] * mesh.ndim)
+    if any(v and b for v, b in zip(vocab, batch)):
+        raise ValueError("the vocabulary and the batch are split over one mesh dim")
+    shards, offset = 1, 0
+    for i, v in enumerate(vocab):  # this rank's shard, the first mesh dim outermost
+        if v:
+            shards *= mesh.size(i)
+            offset = offset * mesh.size(i) + mesh.get_coordinate()[i]
+    rows = table.shape[0] // shards
+    offset *= rows
+
+    def local(t, ids):
+        hit = (ids >= offset) & (ids < offset + rows)
+        found = t[(ids - offset).clamp(0, rows - 1)]
+        return torch.where(hit[..., None], found, torch.zeros((), dtype=t.dtype, device=t.device))
+
+    run = local_map(
+        local, out_placements=[Partial() if v else Shard(0) if b else Replicate()
+                               for v, b in zip(vocab, batch)],
+        in_placements=([Shard(0) if v else Replicate() for v in vocab],
+                       list(tokens.placements) if is_dtensor(tokens) else None),
+        in_grad_placements=([Shard(0) if v else Partial() if b else Replicate()
+                             for v, b in zip(vocab, batch)],
+                            list(tokens.placements) if is_dtensor(tokens) else None),
+        redistribute_inputs=True)
+    # the partial sums summed now: the residual stream starts whole
+    return run(table, tokens).redistribute(mesh, [Shard(0) if b else Replicate() for b in batch])
+
+
 def embed_inputs(cfg, params, batch) -> torch.Tensor:
     """Token (+patch) embedding.  Returns (B, S, d)."""
     if cfg.family == "audio":
         raise ValueError("audio uses encode()/decoder paths")
-    x = params["embed"][batch["tokens"]]  # (B,S,d)
+    x = _lookup(params["embed"], batch["tokens"])  # (B,S,d)
     if cfg.gemma_norm:
         x = _gemma_scale(cfg, x)
     if cfg.family == "vlm" and "patches" in batch:
@@ -309,7 +363,7 @@ def _audio_forward(cfg, params, batch, *, policy=NO_SHARDING, remat: bool = Fals
     enc_out = encode(cfg, params, batch["frames"], policy=policy, remat=remat)
     tokens = batch["tokens"]
     s = tokens.shape[1]
-    x = params["embed"][tokens] + params["dec_pos"][:s][None]
+    x = _lookup(params["embed"], tokens) + params["dec_pos"][:s][None]
     positions = _positions(s, x.device)
     block_fn = _maybe_remat(
         lambda bp, x, enc_out: _group_forward(cfg, bp, x, positions, policy,
@@ -343,6 +397,16 @@ def _softcapped_logits(cfg, x: torch.Tensor, w: torch.Tensor, policy=NO_SHARDING
 # ---------------------------------------------------------------------------
 
 
+def _gold(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """logits[..., y], gathered.  DTensor logits (the vocabulary sharded)
+    take a masked sum over the vocabulary instead, which is exact (one term,
+    the rest zeros): DTensor's gather along a sharded dim fails."""
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, y[..., None])[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=y.device)
+    return torch.where(vocab == y[..., None], logits, 0.0).sum(-1)
+
+
 def chunked_xent(cfg, params, hidden: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
                  *, chunk: int = XENT_CHUNK, policy=NO_SHARDING) -> torch.Tensor:
     """Mean next-token cross entropy.  hidden (B,S,d); labels/mask (B,S).
@@ -360,8 +424,7 @@ def chunked_xent(cfg, params, hidden: torch.Tensor, labels: torch.Tensor, mask: 
     def chunk_nll(h, w, y, m):
         logits = _softcapped_logits(cfg, h, w, policy)
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, y[..., None])[..., 0]
-        return ((lse - gold) * m).sum()
+        return ((lse - _gold(logits, y)) * m).sum()
 
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -422,8 +485,9 @@ def _group_cache(cfg, batch: int, max_len: int, lead, device) -> dict:
 
 def init_caches(cfg, batch: int, max_len: int, *, enc_len: int = 0,
                 device: str | torch.device = "cuda") -> dict:
-    """Zeroed decode caches on ``device``; ``pos`` (the next position) 0."""
-    dev = resolve_device(device)
+    """Zeroed decode caches on ``device`` (or shapes only, on the meta
+    device); ``pos`` (the next position) 0."""
+    dev = _device(device)
     n_groups, _ = group_layout(cfg)
     caches: dict[str, Any] = {
         "pos": 0,
@@ -448,11 +512,12 @@ def _attn_decode_sub(cfg, p, cache, x, pos: int, *, local: bool):
         q = rope(q, at, cfg.rope_theta)
         k = rope(k, at, cfg.rope_theta)
     kc, vc = cache["k"], cache["v"]
+    q = _placed_like_cache(q, kc)
     length = kc.shape[1]
     # lax.dynamic_update_slice clamps the start: the JAX package's slot
     slot = pos % length if local else min(pos, length - 1)
-    kc[:, slot] = k[:, 0].to(kc.dtype)
-    vc[:, slot] = v[:, 0].to(vc.dtype)
+    _write_slot(kc, slot, k[:, 0])
+    _write_slot(vc, slot, v[:, 0])
     if local:
         # ring buffer: every written slot is within the window by construction
         valid = torch.arange(length, device=x.device) <= min(pos, length - 1)
@@ -465,9 +530,47 @@ def _attn_decode_sub(cfg, p, cache, x, pos: int, *, local: bool):
     return x + o
 
 
+def _write_slot(cache: torch.Tensor, slot: int, value: torch.Tensor) -> None:
+    """cache[:, slot] = value, in place.  A DTensor cache whose sequence dim
+    is sharded (split-KV) is written on the rank that holds ``slot``, into
+    its local shard: a DTensor ``setitem`` on a sharded dim would write into
+    a gathered copy and drop the write."""
+    if not is_dtensor(cache):
+        cache[:, slot] = value.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = cache.device_mesh
+    # value (B, ...) as the cache (B, S, ...) without its sequence dim 1
+    placed = [Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard) and p.dim != 1 else Replicate()
+              for p in cache.placements]
+    v = value.to(cache.dtype)
+    v = (v.redistribute(mesh, placed) if is_dtensor(v) else
+         type(cache).from_local(v, mesh, [Replicate()] * mesh.ndim).redistribute(mesh, placed))
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh, cache.placements)
+    if offset[1] <= slot < offset[1] + shape[1]:
+        cache.to_local()[:, slot - offset[1]] = v.to_local()
+
+
+def _placed_like_cache(q: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:
+    """A DTensor query (B, 1, H, hd) placed as the (B, S, KH, hd) cache it
+    attends to (batch, heads and head dim alike; replicated where the
+    cache's sequence is sharded); anything else as it is.  Left to itself
+    DTensor gathers the cache to meet a query still partial over the fsdp
+    axis (gemma2-27b decode_32k: 49 GB a step on the 256-GPU mesh)."""
+    if not is_dtensor(q):
+        return q
+    from torch.distributed.tensor import Replicate
+
+    return q.redistribute(q.device_mesh, [p if p.is_shard() and p.dim != 1 else Replicate()
+                                          for p in cache.placements])
+
+
 def _cross_decode_sub(cfg, p, cross_cache, x, enc_len: int):
     h = apply_norm(cfg, x, p["ln_cross"])
     q, _, _ = qkv_proj(cfg, p["cross"], h)
+    q = _placed_like_cache(q, cross_cache["k"])
     valid = torch.arange(cross_cache["k"].shape[1], device=x.device) < enc_len
     o = decode_attention(q, cross_cache["k"], cross_cache["v"], valid, 0.0)
     return x + out_proj(p["cross"], o)
@@ -519,7 +622,7 @@ def decode_step(cfg, params, caches, tokens: torch.Tensor, *, enc_len: int = 0):
     The cache tensors are updated in place; the returned tree holds them
     with ``pos`` advanced by one."""
     pos = caches["pos"]
-    x = params["embed"][tokens]
+    x = _lookup(params["embed"], tokens)
     if cfg.gemma_norm:
         x = _gemma_scale(cfg, x)
     if cfg.family == "audio":

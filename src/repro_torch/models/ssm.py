@@ -15,7 +15,6 @@ group (n_groups=1), scalar-per-head A (the Mamba2 restriction).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.ssm_scan.ops import ssd_chunked
 from repro_torch.models.common import dense_init, full, silu, softplus
@@ -51,7 +50,9 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     """Depthwise causal conv.  x: (B, S, C); w: (K, C).  Sum of shifts."""
     k = w.shape[0]
     s = x.shape[1]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    # the zeros concatenated, not F.pad: torch 2.11's DTensor mis-places
+    # constant_pad_nd on a 2-D mesh
+    xp = torch.cat([x.new_zeros((x.shape[0], k - 1, x.shape[2])), x], dim=1)
     out = xp[:, 0:s] * w[0].to(x.dtype)
     for i in range(1, k):
         out = out + xp[:, i:i + s] * w[i].to(x.dtype)

@@ -14,7 +14,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import dense_init, gelu, log_sigmoid, sigmoid
+from repro_torch.models.common import (
+    dense_init,
+    gelu,
+    is_dtensor,
+    log_sigmoid,
+    on_batch_shards,
+    sigmoid,
+)
 
 MLSTM_CHUNK = 256
 GATE_CLIP = 15.0  # clip exp-gate preactivations
@@ -80,7 +87,10 @@ def _mlstm_out(cfg, p: dict, y: torch.Tensor, ogate: torch.Tensor, shape) -> tor
 
 
 def mlstm_forward(cfg, p: dict, x: torch.Tensor, *, chunk: int = MLSTM_CHUNK) -> torch.Tensor:
-    """Full-sequence mLSTM.  x: (B, S, d) -> (B, S, d)."""
+    """Full-sequence mLSTM.  x: (B, S, d) -> (B, S, d).  DTensors run per
+    batch shard (``on_batch_shards``; 4 heads divide no model axis)."""
+    if is_dtensor(x):
+        return on_batch_shards(lambda xx, pp: mlstm_forward(cfg, pp, xx, chunk=chunk), (x,), p, 1)
     b, s, _ = x.shape
     hh = cfg.n_heads
     d_in, dh = mlstm_dims(cfg)
@@ -129,7 +139,10 @@ def mlstm_init_cache(cfg, batch: int, *, lead: tuple[int, ...] = (), device="cpu
 
 
 def mlstm_step(cfg, p: dict, cache: dict, x: torch.Tensor):
-    """Single decode step.  x: (B, 1, d)."""
+    """Single decode step.  x: (B, 1, d).  DTensors run per batch shard."""
+    if is_dtensor(x):
+        return on_batch_shards(lambda c, xx, pp: mlstm_step(cfg, pp, {"c": c}, xx),
+                               (cache["c"], x), p, 2)
     b = x.shape[0]
     hh = cfg.n_heads
     _, dh = mlstm_dims(cfg)
@@ -198,7 +211,11 @@ def _slstm_mlp(p: dict, y: torch.Tensor) -> torch.Tensor:
 
 
 def slstm_forward(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Sequential sLSTM + gated MLP.  x: (B, S, d) -> (B, S, d)."""
+    """Sequential sLSTM + gated MLP.  x: (B, S, d) -> (B, S, d).  DTensors
+    run per batch shard (``on_batch_shards``): through DTensor every one of
+    the S steps' ops would also pay its dispatch."""
+    if is_dtensor(x):
+        return on_batch_shards(lambda xx, pp: slstm_forward(cfg, pp, xx), (x,), p, 1)
     b, s, d = x.shape
     xf = x.float()
     state = slstm_init_state(cfg, b, device=x.device)
@@ -211,7 +228,11 @@ def slstm_forward(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def slstm_step(cfg, p: dict, state, x: torch.Tensor):
-    """Single decode step.  x: (B, 1, d)."""
+    """Single decode step.  x: (B, 1, d).  DTensors run per batch shard."""
+    if is_dtensor(x):
+        return on_batch_shards(
+            lambda c, n, hid, m, xx, pp: slstm_step(cfg, pp, (c, n, hid, m), xx), (*state, x),
+            p, 5)
     state, h_new = _slstm_cell(cfg, p, state, x[:, 0].float())
     y = h_new.reshape(x.shape[0], 1, cfg.d_model).to(x.dtype)
     return state, _slstm_mlp(p, y)

@@ -12,6 +12,13 @@ train step) updates the state's tensors IN PLACE, leaf by leaf in slices, and
 returns a dict holding them: a second copy of a full-width state
 (llama3.2-1b's bf16 params and f32 moments, 15 GB) would not fit beside it.
 The state passed in is consumed.  Everything stays on the params' device.
+
+Given a ``ShardingPolicy`` (state and batch DTensors placed by it), a step
+runs in the policy's ``scope``; each gradient is redistributed to its
+param's placements before the norm and the update, which then runs on each
+rank's shards; a batch sharded on its first dim is cut into microbatches
+shard by shard (each rank's rows [i m / n, (i + 1) m / n) of its own, n the
+ranks the batch is over), so a microbatch stays spread over them.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 from repro_torch.models import lm
 from repro_torch.models.common import (
     NO_SHARDING,
+    is_dtensor,
     sorted_leaves,
     tree_leaves,
     tree_map,
@@ -53,7 +61,7 @@ def init_state(cfg, params: Any) -> dict:
     """{"params", "m", "v", "step"}: zero moments in ``cfg.opt_state_dtype``
     on each param's device, ``step`` an int32 0-d tensor."""
     dt = _dtype(cfg.opt_state_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)  # noqa: E731  (a DTensor stays one)
     device = tree_leaves(params)[0].device
     return {
         "params": params,
@@ -100,9 +108,10 @@ def adamw_update(cfg, opt: OptConfig, state: dict, grads: Any) -> dict:
     gnorm = _global_norm(grads)
     scale = torch.clamp(opt.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
 
+    gnorm, scale, lr, c1, c2 = (_local(x) for x in (gnorm, scale, lr, c1, c2))
     # leaves matched by key (sorted), whatever order each dict was built in
-    for p_all, g_all, m_all, v_all in zip(*map(sorted_leaves, (state["params"], grads,
-                                                               state["m"], state["v"]))):
+    for leaves in zip(*map(sorted_leaves, (state["params"], grads, state["m"], state["v"]))):
+        p_all, g_all, m_all, v_all = (_local(x) for x in leaves)  # shard by shard
         for p, g, m, v in zip(_slices(p_all), _slices(g_all, written=False),
                               _slices(m_all), _slices(v_all)):
             g = g.float() * scale
@@ -115,6 +124,19 @@ def adamw_update(cfg, opt: OptConfig, state: dict, grads: Any) -> dict:
             m.copy_(m32)
             v.copy_(v32)
     return {"params": state["params"], "m": state["m"], "v": state["v"], "step": step}
+
+
+def _local(x):
+    """A DTensor's local shard (the tensor itself, so writes land in the
+    DTensor), anything else as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _like_params(grads: Any, params: Any) -> Any:
+    """Each DTensor gradient in its param's placements (the gradients'
+    reduction over the mesh); plain gradients as they are."""
+    return tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements)
+                    if is_dtensor(g) else g, grads, params)
 
 
 def _value_and_grad(loss_of: Callable, params: Any, batch: dict):
@@ -145,11 +167,16 @@ def make_train_step(cfg, opt: OptConfig | None = None, policy=NO_SHARDING) -> Ca
         return lm.loss_fn(cfg, params, batch, policy=policy)
 
     def train_step(state, batch):
+        with policy.scope():
+            return _step(state, batch)
+
+    def _step(state, batch):
         if opt.microbatch and opt.microbatch < _batch_dim(batch):
             grads, (loss, parts) = _accumulated_grads(
                 loss_of, state["params"], batch, opt.microbatch, _dtype(opt.accum_dtype))
         else:
             (loss, parts), grads = _value_and_grad(loss_of, state["params"], batch)
+        grads = _like_params(grads, state["params"])
         grad_norm = _global_norm(grads)
         new_state = adamw_update(cfg, opt, state, grads)
         metrics = {"loss": loss, "xent": parts["xent"], "aux": parts["aux"],
@@ -172,10 +199,10 @@ def _accumulated_grads(loss_of, params, batch, micro: int, accum_dtype=torch.flo
     if size % micro:
         raise ValueError(f"batch of {size} is not a multiple of the microbatch {micro}")
     n = size // micro
-    g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype, device=p.device), params)
+    g_acc = tree_map(lambda p: torch.zeros_like(p, dtype=accum_dtype), params)
     loss = xent = aux = 0.0
     for i in range(n):
-        mb = tree_map(lambda x: x[i * micro:(i + 1) * micro], batch)
+        mb = tree_map(lambda x: _microbatch(x, i, micro), batch)
         (l_i, parts), g = _value_and_grad(loss_of, params, mb)
         for a, b in zip(tree_leaves(g_acc), tree_leaves(g)):
             a.add_((b.float() / n).to(accum_dtype))
@@ -184,3 +211,20 @@ def _accumulated_grads(loss_of, params, batch, micro: int, accum_dtype=torch.flo
         xent = xent + parts["xent"] / n
         aux = aux + parts["aux"] / n
     return g_acc, (loss, {"xent": xent, "aux": aux})
+
+
+def _microbatch(x, i: int, micro: int):
+    """Rows [i micro, (i + 1) micro) of a plain batch leaf.  A DTensor leaf
+    sharded on its first dim over n ranks gives each rank's own rows
+    [i micro / n, (i + 1) micro / n), as a DTensor placed as the leaf."""
+    from torch.distributed.tensor import Shard
+
+    if not is_dtensor(x) or not any(p == Shard(0) for p in x.placements):
+        return x[i * micro:(i + 1) * micro]
+    n = x.shape[0] // x.to_local().shape[0]
+    if micro % n:
+        raise ValueError(f"a microbatch of {micro} rows does not spread over the {n} ranks "
+                         f"its batch is sharded over")
+    m = micro // n
+    local = x.to_local()[i * m:(i + 1) * m]
+    return type(x).from_local(local, x.device_mesh, x.placements, run_check=False)
