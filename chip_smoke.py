@@ -83,9 +83,11 @@ the first fault:
    beside its bound, its plain version's time and yardsticks the port never
    calls: for flash attention (global and windowed layers, each a row, at
    demo_transformer's shape, at gemma2-27b's B=2 and at zamba2-2.7b's hd 80) the
-   one PyTorch call that computes it, FlexAttention under ``torch.compile``
-   with the softcap as ``score_mod`` and the masks as a ``block_mask``
-   (``library_ms``); for dequant_matmul the dequantize kernel followed by
+   one PyTorch call that computes it (``library_ms``): FlexAttention under
+   ``torch.compile`` with the softcap as ``score_mod`` and the masks as a
+   ``block_mask`` on rows with a softcap or window, else
+   ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+   (zamba2-2.7b's row); for dequant_matmul the dequantize kernel followed by
    ``torch.matmul`` (``unfused_ms``, interleaved best-of with the fused
    kernel, and their ratio).  A yardstick that fails prints as such and
    gives null.  The bound is the larger of bytes / 3.35 TB/s and FLOPs at
@@ -211,7 +213,10 @@ the first fault:
    fused receive at d=32; the SSD scan at S=8).
 
 13. sharding -- run after phase 12: (a) ``launch.mesh.make_test_mesh()``,
-   the one-card (1, 1) mesh (a one-rank NCCL group); gemma2-27b and
+   the one-card (1, 1) mesh (a one-rank NCCL group); over that group
+   ``make_gpipe`` in group mode, one stage holding phase 12's four layers,
+   one run: the group-wide collective, the backend check and the final
+   broadcast, the output bit-equal to phase 12's in-turn run; gemma2-27b and
    zamba2-2.7b drawn as phase 8b drew them, params, caches and tokens placed
    by ``sharding.ShardingPolicy``'s specs (each leaf wrapped, no copy):
    the prefill through ``make_prefill_step(cfg, policy)`` (launches phase
@@ -234,6 +239,31 @@ the first fault:
    (a) and (b) are done, so that none of their times is taken beside the
    children's load on the host; every cell ``ok``, printed as
    ``launch/report.py``'s rows.
+
+14. cards -- ``python3 chip_smoke.py --cards 4`` runs this phase alone, on
+   four cards: the kernels built once, then four processes, one a card, of
+   one NCCL group (a ``file://`` rendezvous), joined within MULTI_JOIN_S (a
+   rank that raises, exits non-zero or hangs fails the phase).  (a) Phase
+   12's GPipe one stage a rank (each rank passes only its own stage), raw
+   and with int8 boundaries, each after a warm-up run: rank 0's in-turn run
+   (TOL_GPIPE) and codec chain (TOL_GPIPE_INT8) on its own card are the
+   references; flash 4 launches a rank (windowed on the odd layers'
+   ranks), quantize 4 on logical stages 0-2, dequantize 4 on 1-3, the
+   flash calls held to an f64 plain run (TOL_FLASH_F64); seconds
+   a run against the in-turn run, the bytes of a hop and the cards' links.
+   (b) llama3.2-1b whole in f32, one train step of ``MULTI_LLAMA``'s batch
+   (no microbatches), placed by ``ShardingPolicy`` on ``make_test_mesh()``'s
+   (4, 1) mesh and on the (2, 2) mesh: the loss, the gradient norm and
+   every gradient leaf within TOL_SHARD of max|ref| of rank 0's plain step.
+   (c) zamba2-2.7b whole in f32 (params and caches), a prefill of
+   ``MULTI_ZAMBA``'s batch x 8192 and 3 decode steps on the (2, 2) mesh:
+   every logit within TOL_SHARD of max|ref| of rank 0's plain run (the
+   prefill's within MULTI_LEAF_TOL, twice the plain run's own spread under
+   an order of sums changed, ``scripts/phase14_probe.py spread``).  Rank 0
+   frees each reference before the placed run; every rank holds its own
+   kernel calls to their plain versions on its card.  The same rank
+   routine runs on 4 gloo CPU ranks at small widths in
+   ``tests/test_torch_multi_card.py``.
 
 The last three lines are a JSON object of the kernels, the card's name and
 power limit, and the device line.
@@ -294,6 +324,12 @@ F32_PRODUCT_S_PER_FLOP = 3 / TF32_FLOP_PER_S
 CODE_PRODUCT_S_PER_FLOP = 2 / BF16_FLOP_PER_S
 TF32_CODE_S_PER_FLOP = 2 / TF32_FLOP_PER_S
 TOL_FLASH = 2e-5
+# the flash forward on demo_transformer's own activations at full width
+# (|q|, |k|, |v| up to ~110, phase 14's GPipe): no f32 version holds TOL_FLASH
+# there.  Against an f64 plain run the f32 plain version erred by up to
+# 2.94e-4 of max|f64| per (batch row, kv-head group) over the four layers'
+# calls, the kernel by 3.42e-5 (on an H100); held at twice the former
+TOL_FLASH_F64 = 5.9e-4
 TOL_DQMM = 1e-5
 
 # demo_transformer at gemma2-27b attention width; depth cut to 4 layers
@@ -567,11 +603,11 @@ def phase_build():
                          f"{smem.group(1) if smem else 0} B static shared memory, {spills}")
 
 
-def randn(shape, seed, scale=1.0):
+def randn(shape, seed, scale=1.0, device="cuda"):
     import torch
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.randn(shape, generator=gen, device="cuda") * scale
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device) * scale
 
 
 def phase_parity() -> dict:
@@ -1635,6 +1671,17 @@ def flex_attention_yardstick(q, k, v, window: int, softcap: float):
     return lambda: fn(qt, kt, vt, score_mod=mod, block_mask=block_mask, enable_gqa=True)
 
 
+def sdpa_yardstick(q, k, v):
+    """``scaled_dot_product_attention`` (causal, ``enable_gqa``; PyTorch
+    picks its backend) on (B, H, S, hd) copies of q, k, v: the one call
+    that computes the kernel's function where there is no softcap and no
+    window.  Returns the call."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+
 # phase 11: the training path (repro_torch.runtime.train, lm.loss_fn, the
 # flash backward kernel, runtime.checkpoint)
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1)
@@ -2464,18 +2511,18 @@ EXAMPLES = (("torch_quickstart.py", []), ("torch_edge_serving_failover.py", []),
             ("torch_pipeline_pods.py", []))
 
 
-def gpipe_at_width(card: str) -> dict:
+def gpipe_at_width(card: str) -> tuple:
     """(a) ``make_gpipe`` in turn on the card: phase 4's demo_transformer
     cut by ``plan_pipeline`` into 4 one-layer stages over 4 pods, 4
     microbatches of 4 requests, against the sequential executor; then with
     int8 boundaries against the chain through the same codec ops.  Returns
-    the compressed run's launches."""
+    the compressed run's launches and the in-turn run's output (on the
+    host), which phase 13's group run over one NCCL rank must equal."""
     import numpy as np
     import torch
 
     from repro_torch.core.model_zoo import demo_transformer
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels.quantize.ops import dequantize_int8, quantize_int8
     from repro_torch.runtime.pipeline import make_gpipe, plan_pipeline, reorder_stage_params
 
     graph, executor_for_version = demo_transformer(**SERVED, device="cuda")
@@ -2494,16 +2541,7 @@ def gpipe_at_width(card: str) -> dict:
     x = randn((GPIPE_MICRO, MICROBATCH, SERVED["seq"], SERVED["d"]), 300, 0.5)
 
     def chain(compress: bool):
-        outs = []
-        for m in range(GPIPE_MICRO):
-            y = x[m]
-            for i in range(n):
-                y = ex(i, i + 1, y)
-                if compress and i < n - 1:
-                    q, s = quantize_int8(y, GPIPE_QUANT_BLOCK)
-                    y = dequantize_int8(q, s, y.dtype, block=GPIPE_QUANT_BLOCK)
-            outs.append(y)
-        return torch.stack(outs)
+        return torch.stack([gpipe_chain(ex, x[m], n, compress) for m in range(GPIPE_MICRO)])
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -2554,9 +2592,51 @@ def gpipe_at_width(card: str) -> dict:
                  f"({counts['flash_attention_cuda_windowed']} windowed), quantize "
                  f"{counts['quantize_int8_cuda']}, dequantize {counts['dequantize_int8_cuda']}, "
                  f"dequant_matmul {counts['dequant_matmul_cuda']}; {card}")
-    del x, ref, y, ref8, y8, ex, executor_for_version
+    y = y.cpu()
+    del x, ref, ref8, y8, ex, executor_for_version
     release()
-    return counts
+    return counts, y
+
+
+def gpipe_one_rank(card: str, want) -> None:
+    """(a) of phase 13: ``make_gpipe`` in group mode over the one-rank NCCL
+    group that ``make_test_mesh`` started, one stage holding phase 12's
+    four layers, one run: the group-wide collective, the backend check and
+    the final broadcast on the card, the output equal to phase 12's in-turn
+    run (``want``, on the host)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.model_zoo import demo_transformer
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime.pipeline import make_gpipe
+
+    _, executor_for_version = demo_transformer(**SERVED, device="cuda")
+    ex = executor_for_version(0)
+    n = SERVED["n_layers"]
+    x = randn((GPIPE_MICRO, MICROBATCH, SERVED["seq"], SERVED["d"]), 300, 0.5)
+    pipe = make_gpipe(lambda _, xm: ex(0, n, xm), 1, n_micro=GPIPE_MICRO, group=dist.group.WORLD)
+    reset_launch_counts()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = pipe(torch.zeros(1), x)  # the one rank's own stage: a leading dim of 1
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = launched(launch_counts())
+    want_counts = {"flash_attention_cuda": n * GPIPE_MICRO,
+                   "flash_attention_cuda_windowed": n * GPIPE_MICRO // 2}
+    if counts != want_counts:
+        fail(f"GPipe over the one-rank NCCL group launched {counts}, not {want_counts}")
+    if not torch.equal(y.cpu(), want):
+        err = ((y.cpu() - want).abs().max() / want.abs().max()).item()
+        fail(f"GPipe over the one-rank NCCL group differs from phase 12's in-turn run: "
+             f"{err:.3g} of max|ref| (bit-equal expected)")
+    say("shard", f"GPipe in group mode over the one-rank NCCL group ({dist.get_backend()}), one "
+                 f"stage of {n} layers: {secs:.3f} s a run, bit-equal to phase 12's in-turn run; "
+                 f"launches {counts}; {card}")
+    del x, y, ex, executor_for_version
+    release()
 
 
 class record_kernel_calls:
@@ -2598,13 +2678,16 @@ class record_kernel_calls:
             setattr(ops, name, fn)
 
 
-def hold_recorded_calls(calls: dict, what: str, tag: str = "entry") -> None:
+def hold_recorded_calls(calls: dict, what: str, tag: str = "entry",
+                        flash_f64: bool = False) -> None:
     """Each kernel call ``record_kernel_calls`` kept, its output against the
     plain version on the same inputs at the pins of phases 3 and 11: quantize
     and dequantize equal, dequant_matmul TOL_DQMM and the SSD scan TOL_SSD
     of max|plain|, flash TOL_FLASH max-abs (with lse, of max|plain|) one
     (batch row, kv-head group) at a time, the backward kernels as in phase
-    11; each printed under ``tag``."""
+    11; each printed under ``tag``.  With ``flash_f64`` the flash forward
+    (without lse) is held instead to an f64 plain run at TOL_FLASH_F64 of
+    max|f64|, the f32 plain version's own error printed beside."""
     import torch
 
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -2625,17 +2708,28 @@ def hold_recorded_calls(calls: dict, what: str, tag: str = "entry") -> None:
             ok, msg = err <= TOL_DQMM, f"{err:.3g} of max|plain| (pin {TOL_DQMM})"
         elif name == "flash_attention_cuda":
             (q, k, v), plain, worst = args, {n: x for n, x in kw.items() if n != "lse"}, 0.0
+            plain_worst = 0.0
             for bs, hs, ks in kv_groups(q, k):
                 group = (q[bs, :, hs], k[bs, :, ks], v[bs, :, ks])
                 if kw.get("lse"):  # fails on a miss
                     worst = max(worst, *plain_residuals(*group, out[0][bs, :, hs],
                                                         out[1][bs, hs], plain, what)[2:])
+                elif flash_f64:
+                    exact = attention_ref(*(t.double() for t in group), **plain)
+                    scale = exact.abs().max().item()
+                    worst = max(worst, (out[bs, :, hs].double() - exact).abs().max().item()
+                                / scale)
+                    own = (attention_ref(*group, **plain).double() - exact).abs().max().item()
+                    plain_worst = max(plain_worst, own / scale)
+                    del exact
                 else:
                     ref = attention_ref(*group, **plain)
                     worst = max(worst, (out[bs, :, hs] - ref).abs().max().item())
-            ok = worst <= TOL_FLASH
+            pin = TOL_FLASH_F64 if flash_f64 and not kw.get("lse") else TOL_FLASH
+            ok = worst <= pin
             msg = (f"o and lse {worst:.3g} of max|plain|" if kw.get("lse")
-                   else f"max-abs {worst:.3g}") + f" (pin {TOL_FLASH})"
+                   else f"{worst:.3g} of max|f64| (the f32 plain version {plain_worst:.3g})"
+                   if flash_f64 else f"max-abs {worst:.3g}") + f" (pin {pin})"
         elif name == "ssd_chunked_cuda":
             b, s, h = args[0].shape[:3]
             p = kw.get("segments") or default_segments(b, s, h, args[0].device)
@@ -2817,13 +2911,13 @@ def entry_points_child(card: str) -> None:
     hold_recorded_calls(calls, "phase 12's entry points")
 
 
-def phase_entry_points(card: str) -> dict:
+def phase_entry_points(card: str) -> tuple:
     """Phase 12: (a) the GPipe at phase 4's width, then (b)-(d), the
     serving CLI and the examples, in a child process.  Returns (a)'s
-    launches."""
+    launches and its in-turn output."""
     t0 = time.perf_counter()
     release()
-    counts = gpipe_at_width(card)
+    counts, y = gpipe_at_width(card)
     child = subprocess.run([sys.executable, str(Path(__file__).resolve()), ENTRY_FLAG],
                            env={**os.environ, "PYTHONPATH": str(SRC)}, cwd=str(ROOT),
                            timeout=900)
@@ -2831,7 +2925,7 @@ def phase_entry_points(card: str) -> dict:
         fail(f"phase 12's child process (the CLI and the examples) exited with "
              f"{child.returncode}")
     say("entry", f"phase 12 ran in {time.perf_counter() - t0:.1f} s; {card}")
-    return counts
+    return counts, y
 
 
 # phase 13: the sharding policy on the one-card mesh, the cost counter held
@@ -3112,10 +3206,11 @@ def shard_costs(card: str, trained: dict) -> None:
                  f"roofline; {card}")
 
 
-def phase_sharding(card: str, served_lm: dict) -> None:
-    """Phase 13: (a) gemma2-27b and zamba2-2.7b served and llama3.2-1b
-    trained on the one-card mesh, (b) the cost counter against the dry run,
-    then (c) the dry run's children started and read."""
+def phase_sharding(card: str, served_lm: dict, gpipe_ref) -> None:
+    """Phase 13: (a) the GPipe over the one-rank group, gemma2-27b and
+    zamba2-2.7b served and llama3.2-1b trained on the one-card mesh, (b)
+    the cost counter against the dry run, then (c) the dry run's children
+    started and read."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_test_mesh
@@ -3126,6 +3221,7 @@ def phase_sharding(card: str, served_lm: dict) -> None:
         mesh = make_test_mesh()
         if tuple(mesh.shape) != (1, 1):
             fail(f"make_test_mesh() on one card is {tuple(mesh.shape)}, not (1, 1)")
+        gpipe_one_rank(card, gpipe_ref)
         for m in LM_MODELS:
             shard_serve(card, mesh, **m, ref=served_lm[m["arch"]]["ref"])
         trained = shard_train(card, mesh)
@@ -3140,6 +3236,573 @@ def phase_sharding(card: str, served_lm: dict) -> None:
         if dist.is_initialized():
             dist.destroy_process_group()
     say("shard", f"phase 13 ran in {time.perf_counter() - t0:.1f} s; {card}")
+
+
+# phase 14: the port across four cards, one process a card over NCCL
+# (python3 chip_smoke.py --cards 4), each part held to the same computation
+# on rank 0's card alone
+CARDS_FLAG = "--cards"
+CARDS = 4
+MULTI_JOIN_S = 600  # the four ranks, from their start: a hang past it fails
+# a collective waits this long for the other ranks (the longest wait is
+# for rank 0's plain llama step, ~25 s)
+MULTI_GROUP_TIMEOUT_S = 180
+TOL_SHARD = 1e-5  # of max|ref|: the CPU sharding tests' pin (tests/_sharding_ranks.py)
+# llama3.2-1b whole in f32 (params, moments, gradients), one train step of
+# B x 4096 with no microbatches: on an H100 80GB the plain step at B=24
+# peaked at 59.3 GiB, and at 28, 32, 36 and 40 ran out of memory
+MULTI_LLAMA = dict(arch="llama3.2-1b", batch=24, seq=4096, seed=91)
+# zamba2-2.7b whole in f32 (params and caches): a prefill of B x 8192, then
+# 3 decode steps from zeroed caches of 8192, fed the prompt's first tokens;
+# the plain run at B=16 peaked at 57.4 GiB on an H100 80GB
+MULTI_ZAMBA = dict(arch="zamba2-2.7b", batch=16, seq=8192, decode=3, seed=93)
+# per-output pins (path -> of max|ref|) at twice a measured spread, where an
+# output missed TOL_SHARD on four H100s: zamba2-2.7b's prefill logits on
+# (2, 2) were 5.43e-5 from the plain run's, and the plain run's own move by
+# up to 7.61e-5 under the residual width permuted in every param, the same
+# products summed in another order (scripts/phase14_probe.py spread)
+MULTI_LEAF_TOL = {"prefill": 1.52e-4}
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiCard:
+    """What each rank of phase 14 runs: four cards over NCCL by default;
+    ``device="cpu"`` with ``reduced`` configs and small widths is its
+    rehearsal on 4 gloo ranks (``tests/test_torch_multi_card.py``)."""
+
+    device: str = "cuda"
+    gpipe: dict = dataclasses.field(default_factory=lambda: dict(SERVED))
+    micro: int = GPIPE_MICRO
+    microbatch: int = MICROBATCH
+    llama: dict = dataclasses.field(default_factory=lambda: dict(MULTI_LLAMA))
+    zamba: dict = dataclasses.field(default_factory=lambda: dict(MULTI_ZAMBA))
+    reduced: bool = False
+
+
+def multi_sync(mc: MultiCard) -> None:
+    import torch
+
+    if mc.device == "cuda":
+        torch.cuda.synchronize()
+
+
+def multi_timed(mc: MultiCard, fn):
+    """``fn()`` on every rank at once (a barrier first), and the seconds of
+    the slowest rank, its device work included."""
+    import torch
+    import torch.distributed as dist
+
+    dist.barrier()
+    multi_sync(mc)
+    t0 = time.perf_counter()
+    out = fn()
+    multi_sync(mc)
+    secs = torch.tensor([time.perf_counter() - t0], dtype=torch.float64, device=mc.device)
+    dist.all_reduce(secs, op=dist.ReduceOp.MAX)
+    return out, secs.item()
+
+
+def multi_release(mc: MultiCard) -> None:
+    import gc
+
+    gc.collect()
+    if mc.device == "cuda":
+        release()
+
+
+def multi_say(p: int, msg: str) -> None:
+    say("multi" if p == 0 else f"multi r{p}", msg)
+
+
+def multi_hold(p: int, calls: dict, what: str, flash_f64: bool = False) -> None:
+    """Every rank's kernel calls of a new signature, on its own card, held to
+    the plain versions (``hold_recorded_calls``)."""
+    hold_recorded_calls(calls, f"phase 14 rank {p}, {what}", "multi" if p == 0 else f"multi r{p}",
+                        flash_f64)
+
+
+def multi_gpipe(p: int, mc: MultiCard) -> dict:
+    """(a) Phase 12's GPipe over the four ranks, one stage a rank: phase 4's
+    demo_transformer (every rank draws it from the same seed and runs only
+    its own layer, its stage params that layer's index alone), cut by
+    ``plan_pipeline`` over ``GPIPE_POD_BW``; uncompressed and with int8
+    boundaries, each after a warm-up run, held on rank 0 to the in-turn run
+    (TOL_GPIPE) and to the chain through the same codec (TOL_GPIPE_INT8)
+    that rank 0 ran alone before."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.model_zoo import demo_transformer
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime.pipeline import make_gpipe, plan_pipeline, reorder_stage_params
+
+    w, dev = mc.gpipe, mc.device
+    n = w["n_layers"]
+    if n != CARDS:
+        fail(f"phase 14's GPipe runs one layer a rank: {n} layers on {CARDS} ranks")
+    graph, executor_for_version = demo_transformer(**w, device=dev)
+    ex = executor_for_version(0)
+    plan = plan_pipeline(graph, n, stage_capacity=graph.layers[0].param_bytes,
+                         pod_bw=np.array(GPIPE_POD_BW))
+    if plan.cuts != tuple(range(n - 1)):
+        fail(f"plan_pipeline did not cut demo_transformer into one layer a stage: {plan.cuts}")
+    layers = reorder_stage_params(torch.arange(n), plan)  # mesh position -> its layer
+    stage = int(layers[p])  # logical stage p runs: layer j is logical stage j
+
+    def stage_fn(layer, x):
+        i = int(layer)
+        return ex(i, i + 1, x)
+
+    x = randn((mc.micro, mc.microbatch, w["seq"], w["d"]), 300, 0.5, device=dev)
+    kw = dict(n_micro=mc.micro, stage_order=plan.stage_order, quant_block=GPIPE_QUANT_BLOCK)
+    res: dict = {"stage_order": list(plan.stage_order)}
+    ref = ref8 = None
+    with torch.no_grad():
+        if p == 0:  # the references, on rank 0's card alone
+            in_turn = make_gpipe(stage_fn, n, **kw)
+            in_turn(layers, x)  # warm-up
+            multi_sync(mc)
+            t0 = time.perf_counter()
+            ref = in_turn(layers, x)
+            multi_sync(mc)
+            res["in_turn_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ref8 = torch.stack([gpipe_chain(ex, x[m], n, True) for m in range(mc.micro)])
+            multi_sync(mc)
+            res["chain_int8_s"] = time.perf_counter() - t0
+        own = layers[p:p + 1]  # this rank's own stage only
+        for compress in (False, True):
+            pipe = make_gpipe(stage_fn, n, compress=compress, group=dist.group.WORLD, **kw)
+            with record_kernel_calls() as calls:
+                pipe(own, x)  # warm-up: NCCL connects each pair at its first send
+            reset_launch_counts()
+            y, secs = multi_timed(mc, lambda: pipe(own, x))
+            counts = launch_counts()
+            tag = "int8" if compress else "raw"
+            want = {"flash_attention_cuda": mc.micro,
+                    "flash_attention_cuda_windowed": mc.micro if stage % 2 and w["window"] else 0,
+                    "quantize_int8_cuda": mc.micro if compress and stage < n - 1 else 0,
+                    "dequantize_int8_cuda": mc.micro if compress and stage > 0 else 0}
+            if dev != "cuda":  # the plain versions run on the CPU: no launch
+                want = dict.fromkeys(want, 0)
+            got = {k: counts[k] for k in want}
+            if got != want or any(v for k, v in launched(counts).items() if k not in want):
+                fail(f"rank {p} (logical stage {stage}) {tag} GPipe launches {launched(counts)}, "
+                     f"want {want}")
+            if not (y.device.type == dev and y.shape == x.shape and torch.isfinite(y).all()):
+                fail(f"rank {p}: the {tag} GPipe's output is not finite {dev} tensors of "
+                     f"{tuple(x.shape)}")
+            res[f"{tag}_s"], res[f"{tag}_launches_r{p}"] = secs, launched(got)
+            if p == 0:
+                want_y, tol = (ref8, TOL_GPIPE_INT8) if compress else (ref, TOL_GPIPE)
+                err = ((y - want_y).abs().max() / want_y.abs().max()).item()
+                if not err <= tol:
+                    fail(f"the {tag} GPipe on {CARDS} ranks against rank 0's "
+                         f"{'chain through the codec' if compress else 'in-turn run'}: "
+                         f"{err:.3g} of max|ref| > {tol}")
+                res[f"{tag}_err"], res[f"{tag}_equal"] = err, bool(torch.equal(y, want_y))
+            del y
+            multi_hold(p, calls, f"GPipe {tag}, logical stage {stage}", flash_f64=True)
+            del calls
+    mb = x[0].numel()
+    res["hop_bytes"] = {"raw": mb * 4, "int8": mb + mb // GPIPE_QUANT_BLOCK * 4}
+    gathered = [None] * CARDS
+    dist.all_gather_object(gathered, {k: v for k, v in res.items() if "launches" in k})
+    for other in gathered:
+        res.update(other)
+    if p == 0:
+        multi_say(p, f"(a) GPipe over {CARDS} ranks, one stage a rank (stage->rank order "
+                     f"{plan.stage_order}): demo_transformer {w}, x {tuple(x.shape)} f32 "
+                     f"({mc.micro} microbatches of {mc.microbatch}); a hop sends "
+                     f"{res['hop_bytes']['raw']} B raw, {res['hop_bytes']['int8']} B as int8 "
+                     f"codes and f32 scales")
+        multi_say(p, f"(a) against rank 0's own runs: raw {res['raw_err']:.3g} of max|ref| "
+                     f"(equal: {res['raw_equal']}; pin {TOL_GPIPE}), int8 {res['int8_err']:.3g} "
+                     f"(equal: {res['int8_equal']}; pin {TOL_GPIPE_INT8}); launches by rank "
+                     + "; ".join(f"r{r} raw {res[f'raw_launches_r{r}']}, int8 "
+                                 f"{res[f'int8_launches_r{r}']}" for r in range(CARDS)))
+        multi_say(p, f"(a) seconds a run: in turn on one card {res['in_turn_s']:.3f} (the chain "
+                     f"through the codec {res['chain_int8_s']:.3f}); on {CARDS} ranks raw "
+                     f"{res['raw_s']:.3f}, int8 {res['int8_s']:.3f}: "
+                     f"{res['in_turn_s'] / res['raw_s']:.3f}x and "
+                     f"{res['in_turn_s'] / res['int8_s']:.3f}x the in-turn run (the bubble's "
+                     f"limit {mc.micro * n / (mc.micro + n - 1):.3f}x)")
+    del x, ref, ref8, ex, executor_for_version
+    multi_release(mc)
+    return res
+
+
+def gpipe_chain(ex, x, n: int, compress: bool):
+    """One microbatch through the n layers, each boundary round-tripped
+    through the int8 codec ops when ``compress``."""
+    from repro_torch.kernels.quantize.ops import dequantize_int8, quantize_int8
+
+    y = x
+    for i in range(n):
+        y = ex(i, i + 1, y)
+        if compress and i < n - 1:
+            q, s = quantize_int8(y, GPIPE_QUANT_BLOCK)
+            y = dequantize_int8(q, s, y.dtype, block=GPIPE_QUANT_BLOCK)
+    return y
+
+
+def multi_config(mc: MultiCard, arch: str):
+    from repro_torch.configs import get_config, reduced
+
+    cfg = get_config(arch)
+    return reduced(cfg) if mc.reduced else cfg
+
+
+def multi_params_f32(mc: MultiCard, cfg, seed: int, seq: int):
+    """The arch's params drawn from ``seed`` on this rank's device, in f32:
+    every rank draws the same tree (``place`` takes rank 0's values)."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+
+    gen = torch.Generator(device=mc.device).manual_seed(seed)
+    params = lm.init_params(cfg, gen, device=mc.device, max_pos=seq)
+    return tree_map(lambda t: t.float(), params)
+
+
+def by_path(tree) -> dict:
+    """{path: tensor} of a tree's tensor leaves (``policy._map_with_path``'s paths)."""
+    import torch
+
+    from repro_torch.sharding.policy import _map_with_path
+
+    out: dict = {}
+    _map_with_path(lambda path, t: out.__setitem__(path, t) if torch.is_tensor(t) else None, tree)
+    return out
+
+
+def multi_errors(mc: MultiCard, ref: dict, got: dict) -> dict:
+    """max|got - ref| / max|ref| of each leaf (ref on the host, got on the device)."""
+    errs = {}
+    for path, want in ref.items():
+        want = want.to(mc.device).double()
+        errs[path] = ((got[path].double() - want).abs().max()
+                      / want.abs().max().clamp(min=1e-30)).item()
+    return errs
+
+
+def multi_check(what: str, errs: dict) -> tuple[str, float]:
+    """The worst leaf of ``errs`` and its error; fails where a leaf misses
+    TOL_SHARD (or its MULTI_LEAF_TOL)."""
+    miss = {k: e for k, e in errs.items() if not e <= MULTI_LEAF_TOL.get(k, TOL_SHARD)}
+    if miss:
+        fail(f"{what}: {len(miss)} leaves past their pins (TOL_SHARD {TOL_SHARD}): "
+             + ", ".join(f"{k} {e:.3g}" for k, e in sorted(miss.items(), key=lambda kv: -kv[1])[:8]))
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
+
+
+def multi_llama(p: int, mc: MultiCard, meshes: dict) -> dict:
+    """(b) llama3.2-1b whole in f32, one train step of ``MULTI_LLAMA``'s
+    B x S with no microbatches: plain on rank 0's card, then with its state
+    and batch placed by ``ShardingPolicy`` on each mesh of ``meshes``; the
+    loss, the gradient norm and every gradient leaf (as the update receives
+    them) held to the plain step's at TOL_SHARD."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models.common import NO_SHARDING
+    from repro_torch.runtime import train
+    from repro_torch.sharding import policy as pol
+    from repro_torch.workload.tokens import bigram_tokens
+
+    kw = mc.llama
+    cfg = multi_config(mc, kw["arch"])
+
+    def step(mesh):
+        state = train.init_state(cfg, multi_params_f32(mc, cfg, kw["seed"], kw["seq"]))
+        batch = {"tokens": bigram_tokens(cfg.vocab_size, kw["batch"], kw["seq"], kw["seed"] + 1,
+                                         device=mc.device)}
+        policy = NO_SHARDING
+        if mesh is not None:
+            policy = pol.ShardingPolicy(cfg, mesh)
+            state = pol.place(state, pol.state_shardings(cfg, mesh, state), mesh)
+            batch = pol.place(batch, pol.batch_shardings(mesh, batch), mesh)
+        fn = train.make_train_step(cfg, train.OptConfig(**TRAIN_OPT), policy)
+        seen, update = {}, train.adamw_update
+
+        def keep_grads(cfg_, opt_, state_, grads):
+            seen["grads"] = grads
+            return update(cfg_, opt_, state_, grads)
+
+        train.adamw_update = keep_grads
+        try:
+            if mesh is None:
+                multi_sync(mc)
+                t0 = time.perf_counter()
+                _, metrics = fn(state, batch)
+                multi_sync(mc)
+                secs = time.perf_counter() - t0
+            else:
+                (_, metrics), secs = multi_timed(mc, lambda: fn(state, batch))
+        finally:
+            train.adamw_update = update
+        out = {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"], "grads": seen["grads"]}
+        out = by_path(pol.to_local(out) if mesh is not None else out)
+        peak = torch.cuda.max_memory_allocated() if mc.device == "cuda" else 0
+        del state, batch, seen, metrics
+        return out, secs, peak
+
+    res: dict = {}
+    ref = None
+    if p == 0:  # the plain step on rank 0's card alone; kept on the host
+        if mc.device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        got, res["plain_s"], res["plain_peak"] = step(None)
+        ref = {k: v.cpu() for k, v in got.items()}
+        del got
+    multi_release(mc)
+    dist.barrier()
+    for name, mesh in meshes.items():
+        with record_kernel_calls() as calls:
+            got, secs, _ = step(mesh)
+        if p == 0:
+            errs = multi_errors(mc, ref, got)
+            scalars = {k: errs.pop(k) for k in ("loss", "grad_norm")}
+            worst, err = multi_check(f"llama3.2-1b on the {name} mesh", {**scalars, **errs})
+            multi_say(p, f"(b) llama3.2-1b whole f32, B={kw['batch']} x S={kw['seq']}, one step "
+                         f"placed on the {name} mesh: loss {got['loss'].item():.6f} (plain "
+                         f"{ref['loss'].item():.6f}), against the plain step: loss "
+                         f"{scalars['loss']:.3g}, gradient norm {scalars['grad_norm']:.3g}, "
+                         f"{len(errs)} gradient leaves at most {max(errs.values()):.3g} of "
+                         f"max|ref| (worst {worst}; pin {TOL_SHARD}); {secs:.3f} s a step "
+                         f"against the plain {res['plain_s']:.3f} s on one card")
+            res[name] = {"secs": secs, "loss_err": scalars["loss"],
+                         "grad_norm_err": scalars["grad_norm"], "leaf_err": max(errs.values()),
+                         "worst": worst}
+        del got
+        multi_release(mc)
+        multi_hold(p, calls, f"llama3.2-1b on the {name} mesh, through DTensor")
+        del calls
+        multi_release(mc)
+    if p == 0:
+        multi_say(p, f"(b) the plain step on rank 0's card: {res['plain_s']:.3f} s, peak "
+                     f"{res['plain_peak'] / 2**30:.2f} GiB")
+    return res
+
+
+def zamba_run(mc: MultiCard, mesh=None, params=None) -> tuple[dict, float, int]:
+    """(c)'s serving run of ``MULTI_ZAMBA``'s zamba2-2.7b (``mc.zamba``):
+    f32 params (drawn from its seed unless given) and caches, a prefill of
+    B x S, then its decode steps from zeroed caches, each fed the prompt's
+    next token; plain without ``mesh``, else params, caches and tokens
+    placed by the policy on it.  Returns ({path: logits}, the slowest
+    rank's seconds, peak device bytes)."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.common import NO_SHARDING, tree_map
+    from repro_torch.runtime.serve import make_prefill_step
+    from repro_torch.sharding import policy as pol
+
+    kw = mc.zamba
+    cfg = multi_config(mc, kw["arch"])
+    b, s = kw["batch"], kw["seq"]
+    if params is None:
+        params = multi_params_f32(mc, cfg, kw["seed"], s)
+    gen = torch.Generator(device=mc.device).manual_seed(kw["seed"] + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=mc.device)
+    caches = tree_map(lambda t: t.float() if torch.is_tensor(t) else t,
+                      lm.init_caches(cfg, b, s, device=mc.device))
+    policy = NO_SHARDING
+    place_tokens = lambda t: t  # noqa: E731
+    if mesh is not None:
+        policy = pol.ShardingPolicy(cfg, mesh)
+        params = pol.place(params, pol.param_shardings(cfg, mesh, params), mesh)
+        caches = pol.place(caches, pol.cache_shardings(cfg, mesh, caches, b), mesh)
+        place_tokens = lambda t: pol.place(  # noqa: E731
+            {"t": t}, pol.batch_shardings(mesh, {"t": t}), mesh)["t"]
+
+    def serve():
+        logits = [make_prefill_step(cfg, policy)(params, {"tokens": place_tokens(tokens)})]
+        with torch.no_grad(), policy.scope():
+            for j in range(kw["decode"]):
+                step, _ = lm.decode_step(cfg, params, caches,
+                                         place_tokens(tokens[:, j:j + 1].contiguous()))
+                logits.append(step)
+        return logits
+
+    if mesh is None:
+        multi_sync(mc)
+        t0 = time.perf_counter()
+        logits = serve()
+        multi_sync(mc)
+        secs = time.perf_counter() - t0
+    else:
+        logits, secs = multi_timed(mc, serve)
+    out = {"prefill": logits[0], **{f"decode/{j}": t for j, t in enumerate(logits[1:])}}
+    out = by_path(pol.to_local(out) if mesh is not None else out)
+    peak = torch.cuda.max_memory_allocated() if mc.device == "cuda" else 0
+    del params, caches, logits
+    return out, secs, peak
+
+
+def multi_zamba(p: int, mc: MultiCard, mesh) -> dict:
+    """(c) zamba2-2.7b whole, f32 params and caches (``zamba_run``): plain
+    on rank 0's card, then placed by the policy on ``mesh``; the prefill's
+    and every decode step's logits held to the plain run's at TOL_SHARD
+    (or their MULTI_LEAF_TOL)."""
+    import torch
+    import torch.distributed as dist
+
+    kw = mc.zamba
+    res: dict = {}
+    ref = None
+    if p == 0:
+        if mc.device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        got, res["plain_s"], res["plain_peak"] = zamba_run(mc)
+        ref = {k: v.cpu() for k, v in got.items()}
+        del got
+    multi_release(mc)
+    dist.barrier()
+    with record_kernel_calls() as calls:
+        got, secs, _ = zamba_run(mc, mesh)
+    if p == 0:
+        errs = multi_errors(mc, ref, got)
+        multi_check("zamba2-2.7b on the (2, 2) mesh", errs)
+        if not all(torch.isfinite(t).all() for t in got.values()):
+            fail("zamba2-2.7b on the (2, 2) mesh: logits not finite")
+        multi_say(p, f"(c) zamba2-2.7b whole f32, prefill B={kw['batch']} x S={kw['seq']} and "
+                     f"{kw['decode']} decode steps placed on the (2, 2) mesh: against the plain "
+                     "run " + ", ".join(f"{k} {e:.3g} (pin {MULTI_LEAF_TOL.get(k, TOL_SHARD)})"
+                                        for k, e in errs.items())
+                     + f" of max|ref|; {secs:.3f} s against the plain "
+                     f"{res['plain_s']:.3f} s on one card (peak {res['plain_peak'] / 2**30:.2f} "
+                     f"GiB)")
+        res.update(secs=secs, errs=errs)
+    del got
+    multi_release(mc)
+    multi_hold(p, calls, "zamba2-2.7b on the (2, 2) mesh, through DTensor")
+    del calls
+    multi_release(mc)
+    return res
+
+
+def multi_card_rank(p: int, directory: str, mc: MultiCard) -> None:
+    """Phase 14 on rank ``p`` of CARDS: its card (or the CPU) and its rank of
+    the group (``launch.mesh.start_rank_group``, a ``file://`` rendezvous in
+    ``directory``), then (a) the GPipe, (b) llama3.2-1b on
+    ``make_test_mesh()``'s (4, 1) mesh and on the (2, 2) mesh, (c)
+    zamba2-2.7b on the (2, 2) mesh; rank 0 writes the results to
+    ``directory/results.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import start_rank_group
+
+    if mc.device == "cuda":
+        from repro_torch.core.execution import resolve_device
+
+        torch.cuda.set_device(p)
+        resolve_device("cuda")  # full-f32 library matmuls, as every phase
+    else:
+        torch.set_num_threads(1)
+    start_rank_group(p, CARDS, f"file://{directory}/rendezvous", device=mc.device,
+                     timeout_s=MULTI_GROUP_TIMEOUT_S)
+    try:
+        multi_parts(p, directory, mc)
+    except BaseException as e:  # noqa: BLE001  fail() too
+        # the other ranks wait in a collective, on which destroying the group
+        # would wait: the process ends at once, and the parent stops the rest
+        if not isinstance(e, SystemExit):
+            import traceback
+
+            traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def multi_parts(p: int, directory: str, mc: MultiCard) -> None:
+    """(a), (b) and (c) on rank ``p`` of the running group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t0 = time.perf_counter()
+    res = {"gpipe": multi_gpipe(p, mc)}
+    t1 = time.perf_counter()
+    meshes = {"(4, 1)": make_test_mesh(device=mc.device),
+              "(2, 2)": make_test_mesh(device=mc.device, model=2)}
+    if [tuple(m.shape) for m in meshes.values()] != [(CARDS, 1), (2, 2)]:
+        fail(f"make_test_mesh on {CARDS} ranks: {[tuple(m.shape) for m in meshes.values()]}")
+    res["llama"] = multi_llama(p, mc, meshes)
+    t2 = time.perf_counter()
+    res["zamba"] = multi_zamba(p, mc, meshes["(2, 2)"])
+    res["part_s"] = {"a": t1 - t0, "b": t2 - t1, "c": time.perf_counter() - t2}
+    if p == 0:
+        multi_say(p, "seconds by part (rank 0): " + ", ".join(
+            f"({k}) {v:.1f}" for k, v in res["part_s"].items()))
+        Path(directory, "results.json").write_text(json.dumps(res))
+    dist.barrier()
+
+
+def card_links() -> list[str]:
+    """How the cards are linked: ``nvidia-smi topo -m`` (or, where the
+    machine refuses it, ``nvidia-smi topo -p2p n``, NVLink peer access by
+    pair) and torch's peer access by pair."""
+    import torch
+
+    lines = []
+    for cmd in (["nvidia-smi", "topo", "-m"], ["nvidia-smi", "topo", "-p2p", "n"]):
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+            text = (r.stdout + r.stderr).strip()
+        except (OSError, subprocess.TimeoutExpired) as e:
+            text = f"{type(e).__name__}: {e}"
+        lines += [f"{' '.join(cmd)}: " + (text.splitlines()[0] if text else "(no output)")]
+        lines += text.splitlines()[1:]
+    n = torch.cuda.device_count()
+    lines.append("torch peer access by pair: " + ", ".join(
+        f"{i}->{j} {torch.cuda.can_device_access_peer(i, j)}"
+        for i in range(n) for j in range(n) if i != j))
+    return lines
+
+
+def phase_multi_card(card: str) -> dict:
+    """Phase 14: the kernels built once here (four ranks building at once
+    would race on the build's stamp), then one process a card, joined
+    within MULTI_JOIN_S; a rank that raises, exits non-zero or hangs fails
+    the phase."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    if torch.cuda.device_count() < CARDS:
+        fail(f"phase 14 needs {CARDS} cards, this machine has {torch.cuda.device_count()}")
+    phase_build()
+    for line in card_links():
+        say("multi", line)
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ctx = mp.start_processes(multi_card_rank, args=(tmp, MultiCard()), nprocs=CARDS,
+                                 join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > MULTI_JOIN_S:
+                    fail(f"phase 14's ranks ran past {MULTI_JOIN_S} s")
+        except Exception as e:  # noqa: BLE001  a rank raised or exited non-zero
+            fail(f"phase 14: {type(e).__name__}: {str(e)[-3000:]}")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join()
+        res = json.loads(Path(tmp, "results.json").read_text())
+    res["wall_s"] = time.perf_counter() - t0
+    say("multi", f"phase 14 ran in {res['wall_s']:.1f} s on {CARDS} cards; {card}")
+    return res
 
 
 def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
@@ -3261,22 +3924,27 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
             kernel = lambda w=window, c=softcap: flash_attention_cuda(  # noqa: E731
                 fq, fk, fv, causal=True, window=w, softcap=c)
 
-            library, flex = None, None
+            library, lib = None, None
+            # the one call that takes a softcap or window is FlexAttention;
+            # without either, scaled_dot_product_attention computes the same
+            lib_name = ("FlexAttention" if window > 0 or softcap != 0
+                        else "scaled_dot_product_attention")
             t0 = time.perf_counter()
             try:  # a yardstick only: its failure is reported, never timed
-                flex = flex_attention_yardstick(fq, fk, fv, window, softcap)
-                flex_out = flex().transpose(1, 2)
+                lib = (flex_attention_yardstick(fq, fk, fv, window, softcap)
+                       if lib_name == "FlexAttention" else sdpa_yardstick(fq, fk, fv))
+                lib_out = lib().transpose(1, 2)
                 torch.cuda.synchronize()
             except Exception as e:  # noqa: BLE001
-                flex = None
-                say("times", f"{name}: FlexAttention yardstick FAILED ({type(e).__name__}: "
+                lib = None
+                say("times", f"{name}: {lib_name} yardstick FAILED ({type(e).__name__}: "
                              f"{str(e)[:300]}); library_ms null")
-            if flex is not None:
-                diff = (flex_out - kernel()).abs().max().item()
-                library = cuda_time_ms(flex, 3)
-                say("times", f"{name}: FlexAttention compiled and run in "
-                             f"{time.perf_counter() - t0:.1f} s, max-abs {diff:.3g} from the kernel")
-                del flex, flex_out
+            if lib is not None:
+                diff = (lib_out - kernel()).abs().max().item()
+                library = cuda_time_ms(lib, 3)
+                say("times", f"{name}: {lib_name} ran in {time.perf_counter() - t0:.1f} s, "
+                             f"max-abs {diff:.3g} from the kernel, {library:.4f} ms")
+                del lib, lib_out
                 torch.cuda.empty_cache()
             row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention/kernel.py:96", kernel, plain, 3,
@@ -3389,6 +4057,19 @@ def main() -> None:
     if ENTRY_FLAG in sys.argv[1:]:  # phase 12 (b)-(d), in the child phase_entry_points starts
         entry_points_child(card)
         return
+    if CARDS_FLAG in sys.argv[1:]:  # phase 14 alone: python3 chip_smoke.py --cards 4
+        at = sys.argv.index(CARDS_FLAG) + 1
+        if sys.argv[at:at + 1] != [str(CARDS)]:
+            fail(f"{CARDS_FLAG} takes {CARDS} (phase 14 runs one stage and one rank a card)")
+        multi = phase_multi_card(card)
+        say("done", f"chip_smoke.py {CARDS_FLAG} {CARDS} ran in "
+                    f"{time.perf_counter() - start:.0f} s")
+        print(json.dumps({"multi_card": multi}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     phase_build()
     errors = phase_parity()
     errors["ssd_chunked"] = phase_parity_ssd()
@@ -3400,8 +4081,9 @@ def main() -> None:
     served_lm = phase_lm(card)
     phase_replicas(card)
     trained = phase_train(card)
-    gpipe = phase_entry_points(card)
-    phase_sharding(card, served_lm)
+    gpipe, gpipe_ref = phase_entry_points(card)
+    phase_sharding(card, served_lm, gpipe_ref)
+    del gpipe_ref
     gemma, zamba = served_lm["gemma2-27b"], served_lm["zamba2-2.7b"]
     errors.update({"flash_attention_fwd_gemma2": gemma["errors"]["global"],
                    "flash_attention_fwd_window_gemma2": gemma["errors"]["window"],

@@ -66,10 +66,15 @@ def make_fake_mesh(shape: tuple[int, ...], axes: tuple[str, ...], device_type: s
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
-def make_test_mesh(*, device: str = "cuda", init_method: str | None = None):
-    """Every local device of ``device``'s type on an (n, 1) ("data",
-    "model") mesh: (1, 1) on one card.  Starts a one-process group (NCCL on
-    CUDA, gloo on the CPU) when none is running."""
+def make_test_mesh(*, device: str = "cuda", init_method: str | None = None, model: int = 1):
+    """The running group's ranks on a (n / model, model) ("data", "model")
+    mesh of ``device``'s type: (n, 1) by default, as the JAX package's
+    mesh of every local device, so (1, 1) on one card and (4, 1) on four
+    cards run one process a card.  Starts a one-process group (NCCL on
+    CUDA, gloo on the CPU) when none is running; with several local cards
+    none is started: each process sets its card
+    (``torch.cuda.set_device``) and starts the group first
+    (``start_rank_group``)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -80,11 +85,31 @@ def make_test_mesh(*, device: str = "cuda", init_method: str | None = None):
     if not dist.is_initialized():
         if n != 1:
             raise RuntimeError(f"{n} local devices: start one process a device "
-                               f"(torch.distributed) and call this in each")
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                                init_method=init_method or _free_tcp(), rank=0, world_size=1)
-    return init_device_mesh(dev.type, (dist.get_world_size(), 1),
-                            mesh_dim_names=("data", "model"))
+                               f"(start_rank_group) and call this in each")
+        start_rank_group(0, 1, init_method or _free_tcp(), device=dev.type)
+    world = dist.get_world_size()
+    if world % model:
+        raise ValueError(f"a model axis of {model} does not divide the group's {world} ranks")
+    return init_device_mesh(dev.type, (world // model, model), mesh_dim_names=("data", "model"))
+
+
+def start_rank_group(rank: int, world: int, init_method: str, *, device: str = "cuda",
+                     timeout_s: float = 600.0) -> None:
+    """Start this process's rank of a ``world``-rank group at
+    ``init_method``: on CUDA card ``rank`` over NCCL (the card set current
+    first, and named as the group's ``device_id``, so NCCL connects at
+    once and never guesses a rank's card), on the CPU over gloo."""
+    import datetime
+
+    import torch.distributed as dist
+
+    kw = {}
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+        kw["device_id"] = torch.device("cuda", rank)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo", init_method=init_method,
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout_s), **kw)
 
 
 def _free_tcp() -> str:

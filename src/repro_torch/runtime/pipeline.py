@@ -105,9 +105,8 @@ def plan_pipeline(
 # GPipe execution: every position in turn, or one rank a position
 # ---------------------------------------------------------------------------
 
-# the backend group mode runs over, and the device it sends tensors on;
-# nccl across cards has not been run yet, so it is refused
-_BACKEND_DEVICE = {"gloo": "cpu"}
+# the backend group mode runs over, and the device it sends tensors on
+_BACKEND_DEVICE = {"gloo": "cpu", "nccl": "cuda"}
 
 
 def _check_backend_device(group, device: torch.device) -> None:
@@ -122,8 +121,8 @@ def _check_backend_device(group, device: torch.device) -> None:
     if device.type not in kinds:
         raise ValueError(
             f"make_gpipe: group mode sends {sorted(kinds)} tensors over the {backend} group "
-            f"(gloo on the CPU only), but x lies on {device}; move x and the params there, or "
-            f"run in turn (group=None) on the card (no boundary is copied across devices)")
+            f"(gloo on the CPU, nccl on CUDA), but x lies on {device}; move x and the params "
+            f"there, or run in turn (group=None) (no boundary is copied across devices)")
 
 
 def make_gpipe(
@@ -161,9 +160,14 @@ def make_gpipe(
       passes either the whole stack or only its own position's params, with
       a leading dim of 1 (the block ``shard_map`` hands a device), so a
       model that fits no one device still runs; every rank passes the same
-      ``x`` and returns the output.  Group mode runs over gloo, on CPU
-      tensors; any other backend or device raises (nccl across cards has
-      not been run yet).
+      ``x`` and returns the output.  Group mode runs over gloo on CPU
+      tensors and over NCCL on CUDA tensors (one card a rank); any other
+      pair raises before any send.  One collective over the group runs
+      before the first tick: NCCL's first point-to-point batch on a group
+      must involve every rank, and at tick 0 only the first stage sends.
+      On NCCL a ``wait()`` orders the current stream after the transfer,
+      not the host: the kernels that decode a received boundary run on
+      that stream, and nothing here synchronizes the device.
 
     A (stage, tick) pair with no microbatch is skipped, not masked: its
     input would come from a pair that was itself idle one tick earlier.
@@ -227,6 +231,7 @@ def make_gpipe(
             wire_like = ((mb_shape, x.dtype),)
         outs = torch.empty_like(x)
         buf = None
+        dist.all_reduce(torch.zeros(1, device=x.device), group=group)  # every rank, once
         for t in range(n_micro + n_stages - 1):
             ops, recv = [], []
             if active(s, t):

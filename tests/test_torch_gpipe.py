@@ -135,8 +135,8 @@ def test_four_gloo_ranks_equal_the_in_turn_run(tmp_path):
 
 
 def test_group_mode_refuses_a_tensor_its_backend_does_not_send(monkeypatch):
-    """A gloo group sends CPU tensors; a tensor elsewhere, or another
-    backend, raises before any send (no copy to the host behind the
+    """A gloo group sends CPU tensors, an NCCL group CUDA tensors; a tensor
+    elsewhere raises before any send (no copy to the host behind the
     caller's back)."""
     from repro_torch.runtime import pipeline
 
@@ -145,12 +145,12 @@ def test_group_mode_refuses_a_tensor_its_backend_does_not_send(monkeypatch):
     pipe = make_gpipe(stage_fn, 4, n_micro=2, group=object())
     with pytest.raises(ValueError, match="lies on meta"):
         pipe(torch.zeros(4, 2, D, D, device="meta"), torch.zeros(2, MB, D, device="meta"))
-    # nccl across cards has not been run: refused, on any device
+    # nccl sends CUDA tensors only: refused on the CPU
     monkeypatch.setattr(pipeline.dist, "get_backend", lambda group=None: "nccl")
-    with pytest.raises(ValueError, match="lies on cpu"):
+    with pytest.raises(ValueError, match=r"sends \['cuda'\] tensors .* lies on cpu"):
         pipe(torch.zeros(4, 2, D, D), torch.zeros(2, MB, D))
     monkeypatch.setattr(pipeline.dist, "get_backend", lambda group=None: "cpu:gloo,cuda:nccl")
-    with pytest.raises(ValueError, match=r"sends \['cpu'\] tensors .* lies on meta"):
+    with pytest.raises(ValueError, match=r"sends \['cpu', 'cuda'\] tensors .* lies on meta"):
         pipe(torch.zeros(4, 2, D, D, device="meta"), torch.zeros(2, MB, D, device="meta"))
 
 
