@@ -40,12 +40,18 @@ Stage executors run for real on the deployment's device: each admitted
 microbatch is stacked onto it (``serving.stack_batch``), every stage compute
 runs the executor (kernels included), and every hop applies its codec's
 transform.  The virtual clock is floats only; no tensor reduction enters it.
+That real work runs inside ``obs.region`` labels (``seifer.engine.step``,
+``seifer.engine.admit``, ``seifer.stage.<s>``, ``seifer.hop.<h>.encode`` /
+``.transcode``), which a ``torch.profiler`` trace shows on its own clock,
+and the host's wait from submission to admission is counted on the host
+clock (``host_counters``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import heapq
+import time
 from collections import deque
 from typing import Any
 
@@ -60,7 +66,7 @@ from repro_torch.cluster.serving import (
 )
 from repro_torch.core.bottleneck import service_times
 from repro_torch.dataplane.base import EncodedActivation
-from repro_torch.obs.trace import split_hop, split_window
+from repro_torch.obs.trace import region, split_hop, split_window
 
 _ALL = "all"  # sentinel: every stage is affected (version bump, restart)
 
@@ -174,6 +180,15 @@ class PipelinedServingLoop:
         self._link_wire: list[float] = []  # on-wire bytes per hop
         self._link_busy_s: list[float] = []  # time each link spent occupied
         self._link_xfers: list[int] = []  # completed transfers per hop
+        # region names, built once a binding: seifer.stage.<s>, and
+        # (seifer.hop.<h>.encode, seifer.hop.<h>.transcode)
+        self._stage_regions: tuple[str, ...] = ()
+        self._hop_regions: tuple[tuple[str, str], ...] = ()
+        # host clock (time.monotonic) of each queued request's entry into
+        # admission, and the admitted requests' count and summed wait
+        self._host_queued: dict[int, float] = {}
+        self._admission_waits = 0
+        self._admission_wait_s = 0.0
         self._mb_completed = 0
         self._requeues = 0  # microbatches pulled off affected stages
         self._bound_pipeline = None  # identity of the pipeline we're bound to
@@ -188,7 +203,7 @@ class PipelinedServingLoop:
             priority=self.class_priority.get(slo_class, 0),
         )
         self._next_id += 1
-        self.queue.append(req)
+        self._enqueue(req)
         return req
 
     def schedule(self, x: Any, at_s: float, *,
@@ -221,8 +236,12 @@ class PipelinedServingLoop:
         """Admit an already-created request (the replica router's path: ids
         are minted cluster-wide, so the per-replica loop must not renumber).
         Unbounded: the router already applied its own admission policy."""
-        self.queue.append(req)
+        self._enqueue(req)
         return req
+
+    def _enqueue(self, req: Request) -> None:
+        self.queue.append(req)
+        self._host_queued[req.req_id] = time.monotonic()
 
     def _admit_bounded(self, req: Request) -> None:
         if (self.admission_depth is not None
@@ -232,7 +251,7 @@ class PipelinedServingLoop:
                 self._registry.counter(
                     "requests_rejected", engine="pipelined").inc()
         else:
-            self.queue.append(req)
+            self._enqueue(req)
 
     def _admit_due(self) -> None:
         """Move every arrival whose timestamp has passed into the queue."""
@@ -268,31 +287,32 @@ class PipelinedServingLoop:
         the health check) are reconciled first, requeueing exactly the
         in-flight microbatches resident on affected stages.
         """
-        done0 = len(self.completed)
-        pipe = self.control.pipeline
-        if pipe is None:
-            raise RuntimeError("bootstrap the control plane before serving")
-        if pipe is not self._bound_pipeline:
-            # out-of-band swap (e.g. Deployment.replan): nothing carries over
-            self._rebind(affected=_ALL)
-        elif self._pod_signature() != self._pod_sig:
-            # out-of-band in-place recovery (reconcile() called directly, not
-            # through step): restarted pods lost their resident batches, moved
-            # pods migrated with theirs; timings re-derive either way
-            restarted = {
-                s for s, (pod, (_, _, restarts0)) in
-                enumerate(zip(pipe.pods, self._pod_sig))
-                if pod.restarts != restarts0
-            }
-            self._rebind(affected=frozenset(restarted))
-        if self.control.pending or not pipe.healthy():
-            self._reconcile()
-        self._admit_due()
-        self._schedule()
-        while len(self.completed) == done0:
-            if not self._advance():
-                break
-        return self.completed[done0:]
+        with region("seifer.engine.step"):
+            done0 = len(self.completed)
+            pipe = self.control.pipeline
+            if pipe is None:
+                raise RuntimeError("bootstrap the control plane before serving")
+            if pipe is not self._bound_pipeline:
+                # out-of-band swap (e.g. Deployment.replan): nothing carries over
+                self._rebind(affected=_ALL)
+            elif self._pod_signature() != self._pod_sig:
+                # out-of-band in-place recovery (reconcile() called directly, not
+                # through step): restarted pods lost their resident batches, moved
+                # pods migrated with theirs; timings re-derive either way
+                restarted = {
+                    s for s, (pod, (_, _, restarts0)) in
+                    enumerate(zip(pipe.pods, self._pod_sig))
+                    if pod.restarts != restarts0
+                }
+                self._rebind(affected=frozenset(restarted))
+            if self.control.pending or not pipe.healthy():
+                self._reconcile()
+            self._admit_due()
+            self._schedule()
+            while len(self.completed) == done0:
+                if not self._advance():
+                    break
+            return self.completed[done0:]
 
     def drain(self, max_rounds: int = 100_000) -> list[Request]:
         """Step until every admitted request completes (or max_rounds).
@@ -367,6 +387,15 @@ class PipelinedServingLoop:
                 for st in self._stages
             ],
         })
+
+    def host_counters(self) -> dict:
+        """Counters on the host clock, kept out of ``metrics()`` (whose
+        payload is deterministic): ``admission_wait`` is the number of
+        admissions and their summed seconds from a request's entry into the
+        admission queue (``submit``/``admit``, an arrival falling due, a
+        requeue) to the microbatch that took it."""
+        return {"admission_wait": {"count": self._admission_waits,
+                                   "sum_s": self._admission_wait_s}}
 
     def steady_state_throughput(self, skip_frac: float = 0.5) -> float:
         """Requests/s over the tail of the completions (fill/drain excluded).
@@ -498,6 +527,9 @@ class PipelinedServingLoop:
                 st.max_queue, st.completed = prev.max_queue, prev.completed
             self._stages.append(st)
         self._link_s = link_s
+        self._stage_regions = tuple(f"seifer.stage.{s}" for s in range(k))
+        self._hop_regions = tuple((f"seifer.hop.{h}.encode", f"seifer.hop.{h}.transcode")
+                                  for h in range(k + 1))
         self._links_busy = [None] * (k + 1)
         if not (carry_stats and len(self._link_busy_s) == k + 1):
             self._link_busy_s = [0.0] * (k + 1)
@@ -583,6 +615,7 @@ class PipelinedServingLoop:
                  if self.tracer.sampled(req.req_id)})
         self._inflight.clear()
         self.queue.clear()
+        self._host_queued.clear()
         self._arrivals.clear()
         self._links_busy = [None] * len(self._links_busy)
         for st in self._stages:
@@ -640,7 +673,8 @@ class PipelinedServingLoop:
             if kind == "compute":
                 st = self._stages[idx]
                 part = st.pod.partition
-                mb.x = self.control.pipeline.executor(part.start, part.stop, mb.x)
+                with region(self._stage_regions[idx]):
+                    mb.x = self.control.pipeline.executor(part.start, part.stop, mb.x)
                 st.busy_s += st.compute_s
                 st.completed += 1
                 st.current = None
@@ -665,12 +699,14 @@ class PipelinedServingLoop:
                         # consumes the wire payload directly (e.g. int8 ->
                         # dequant-matmul), so hand over the still-encoded
                         # activation instead of eagerly decoding it
-                        mb.x = EncodedActivation(codec, codec.encode(mb.x))
+                        with region(self._hop_regions[idx][0]):
+                            mb.x = EncodedActivation(codec, codec.encode(mb.x))
                     else:
                         # the receiver sees decode(encode(x)): the codec's
                         # real transform (the int8 kernels on CUDA, fp16,
                         # top-k) runs on the activations riding the wire
-                        mb.x = codec.transcode(mb.x)
+                        with region(self._hop_regions[idx][1]):
+                            mb.x = codec.transcode(mb.x)
                 if idx == k:
                     self._complete(mb)
                 else:
@@ -735,15 +771,22 @@ class PipelinedServingLoop:
             ):
                 cap = self.max_batch if self.max_batch is not None else self.microbatch
                 take = min(cap, len(self.queue))
-                batch = self._take_batch(take)
-                self._max_batch_seen = max(self._max_batch_seen, len(batch))
-                mb = Microbatch(
-                    self._next_mb, batch,
-                    stack_batch([r.x for r in batch],
-                                self.control.pipeline.device),
-                    stage=0, location=("link", 0),
-                    ready_at=self.clock_s + self._link_s[0],
-                )
+                with region("seifer.engine.admit"):
+                    batch = self._take_batch(take)
+                    now = time.monotonic()
+                    for r in batch:
+                        since = self._host_queued.pop(r.req_id, None)
+                        if since is not None:
+                            self._admission_waits += 1
+                            self._admission_wait_s += now - since
+                    self._max_batch_seen = max(self._max_batch_seen, len(batch))
+                    mb = Microbatch(
+                        self._next_mb, batch,
+                        stack_batch([r.x for r in batch],
+                                    self.control.pipeline.device),
+                        stage=0, location=("link", 0),
+                        ready_at=self.clock_s + self._link_s[0],
+                    )
                 tr = self.tracer
                 if tr is not None:
                     traced = [r for r in batch if tr.sampled(r.req_id)]
@@ -791,6 +834,7 @@ class PipelinedServingLoop:
                 req.attempts += 1
                 if req.attempts >= self.max_attempts:
                     self.failed.append(req)
+                    self._host_queued.pop(req.req_id, None)
                     if tr is not None:
                         tr.forget(req.req_id)
                     if self._registry is not None:
@@ -798,6 +842,7 @@ class PipelinedServingLoop:
                             "requests_failed", engine="pipelined").inc()
                     continue
             self.queue.appendleft(req)
+            self._host_queued[req.req_id] = time.monotonic()
             if tr is not None and tr.sampled(req.req_id):
                 tr.queue_open(req.req_id, self.clock_s)
 

@@ -95,7 +95,9 @@ def serve_edge(
     with a latency percentile report at the end.  ``autoscale`` turns on
     backlog-driven replica scaling over the planner's widest feasible split.
     ``trace_sample`` enables per-request span tracing at that sampling rate
-    and prints the critical-path attribution; ``trace_out`` additionally
+    and prints the critical-path attribution, which the virtual clock
+    models, beside the engine's mean admission wait on the host clock
+    (``host_counters``); ``trace_out`` additionally
     writes the Chrome trace-event export there (chrome://tracing /
     ui.perfetto.dev).
     """
@@ -209,9 +211,16 @@ def serve_edge(
     if trace_sample is not None:
         att = d.attribution()
         f = att["fractions"]
-        print(f"trace ({att['spans']} spans / {att['requests']} requests): "
+        print(f"trace ({att['spans']} spans / {att['requests']} requests), "
+              f"modelled (virtual clock): "
               f"queue {f['queue']:.0%}, compute {f['compute']:.0%}, "
               f"wire {f['wire']:.0%}, transcode {f['transcode']:.0%}")
+        host_counters = getattr(d.loop, "host_counters", None)
+        if host_counters is not None:
+            wait = host_counters()["admission_wait"]
+            mean_ms = 1e3 * wait["sum_s"] / wait["count"] if wait["count"] else 0.0
+            print(f"admission wait (host clock): mean {mean_ms:.3f} ms over "
+                  f"{wait['count']} admissions")
         bn = att["bottleneck"]
         if bn is not None:
             print(f"observed bottleneck: {bn['kind']} {bn['index']} "

@@ -3,8 +3,10 @@
 One package owns every "what happened and where did the time go" question:
 
 * ``obs.trace`` -- per-request span timelines on the virtual clock
-  (``TraceConfig``/``SpanTracer``), with JSON-timeline and Chrome
-  trace-event (Perfetto-loadable) exporters.
+  (``TraceConfig``/``SpanTracer``: the modelled cluster's timeline), with
+  JSON-timeline and Chrome trace-event (Perfetto-loadable) exporters; and
+  ``region``, the ``seifer.*`` labels around real work that a
+  ``torch.profiler`` trace shows on the device's clock.
 * ``obs.journal`` -- the append-only, monotonically-timestamped
   control-plane journal unifying reconcile decisions, scoped-recovery
   records, rollout transitions, autoscaler scale events, and tenancy
@@ -26,7 +28,7 @@ from repro_torch.obs.critical_path import analyze_spans, request_attribution
 from repro_torch.obs.journal import Journal, JournalRecord
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.stats import latency_report, latency_stats, percentile
-from repro_torch.obs.trace import Span, SpanTracer, TraceConfig
+from repro_torch.obs.trace import Span, SpanTracer, TraceConfig, region
 
 __all__ = [
     "Journal",
@@ -39,5 +41,6 @@ __all__ = [
     "latency_report",
     "latency_stats",
     "percentile",
+    "region",
     "request_attribution",
 ]

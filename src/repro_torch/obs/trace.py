@@ -1,12 +1,16 @@
-"""Per-request span timelines on the virtual clock.
+"""Per-request span timelines on the virtual clock, and named regions on
+the profiler's clock.
 
-A **span** is one contiguous interval ``[t0_s, t1_s)`` of a request's life,
-labelled with a phase -- ``queue`` (admission or stage-input wait,
-out-buffer backpressure included), ``exec`` (stage compute), and the link
-window decomposed into ``encode``/``wire``/``decode`` via the codec cost
-model.  Spans are emitted by the serving engines at every microbatch state
-transition, so a completed request's spans tile ``[submitted_s,
-completed_s)`` exactly: monotone, contiguous, no gaps or overlaps.
+``SpanTracer`` is the modelled cluster's timeline, not a measurement.  A
+**span** is one contiguous interval ``[t0_s, t1_s)`` of a request's life on
+the serving engines' virtual clock, which simulates the edge cluster
+(probed link bandwidths, node FLOP rates), labelled with a phase --
+``queue`` (admission or stage-input wait, out-buffer backpressure
+included), ``exec`` (stage compute), and the link window decomposed into
+``encode``/``wire``/``decode`` via the codec cost model.  Spans are emitted
+by the serving engines at every microbatch state transition, so a
+completed request's spans tile ``[submitted_s, completed_s)`` exactly:
+monotone, contiguous, no gaps or overlaps.
 
 Everything is driven by the engines' virtual clocks -- no wall-clock
 reads -- so same-seed runs produce byte-identical trace output.  Sampling
@@ -19,15 +23,35 @@ exporters (:meth:`SpanTracer.timeline`, :meth:`SpanTracer.chrome_trace`)
 are pure views.  The Chrome export loads directly in ``chrome://tracing``
 or https://ui.perfetto.dev: one process per replica, one track per
 request.
+
+``region(name)`` is the measured view: a ``torch.profiler.record_function``
+label around real work (the engine's step, admission, each stage's compute
+and each hop's codec; ``make_gpipe``'s compute, boundary codec, exchanges
+and broadcast), so a trace taken with ``torch.profiler`` shows the
+``seifer.*`` regions on its own clock, beside the kernels they launched.
+With no profiler running it returns a shared null context.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import zlib
 
+from torch.autograd import profiler as _profiler
+
 _U32 = float(1 << 32)
+_NO_REGION = contextlib.nullcontext()
+
+
+def region(name: str):
+    """A ``record_function(name)`` label while ``torch.profiler`` records,
+    else a shared null context: with the profiler off the cost is one flag
+    check, so callers pass names built once, never formatted per call."""
+    if not _profiler._is_profiler_enabled:
+        return _NO_REGION
+    return _profiler.record_function(name)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,10 +187,6 @@ class SpanTracer:
                         req.replica, req.tenant, codec, generation,
                         req.attempts))
         self._cache = None
-
-    def emit(self, span: Span) -> None:
-        """Record an already-built ``Span`` (views/tests convenience)."""
-        self.record(*dataclasses.astuple(span))
 
     def queue_open(self, req_id: int, t_s: float) -> None:
         """Mark a request (re-)entering an admission queue at ``t_s``."""

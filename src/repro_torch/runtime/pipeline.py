@@ -33,6 +33,7 @@ from repro_torch.core.placement import CommGraph, place_optimal
 from repro_torch.dataplane.base import EncodedActivation
 from repro_torch.kernels.quantize.ops import dequantize_int8, quantize_int8
 from repro_torch.models.common import tree_map
+from repro_torch.obs.trace import region
 
 
 # ---------------------------------------------------------------------------
@@ -107,6 +108,8 @@ def plan_pipeline(
 
 # the backend group mode runs over, and the device it sends tensors on
 _BACKEND_DEVICE = {"gloo": "cpu", "nccl": "cuda"}
+# a tick's exchange region, by whether every stage is active at the tick
+_EXCHANGE_REGIONS = ("seifer.gpipe.exchange.edge", "seifer.gpipe.exchange.full")
 
 
 def _check_backend_device(group, device: torch.device) -> None:
@@ -173,6 +176,14 @@ def make_gpipe(
     input would come from a pair that was itself idle one tick earlier.
     The JAX package's ``execution=`` knob is dropped: the tensors' device
     picks the kernel or the plain version.
+
+    Under ``torch.profiler`` each stage-tick's compute runs in a
+    ``seifer.gpipe.compute`` region, the boundary codec in
+    ``seifer.gpipe.encode`` / ``seifer.gpipe.decode``, a tick's point-to-point
+    batch and its waits in ``seifer.gpipe.exchange.full`` when every stage
+    is active at that tick (``n_stages - 1 <= t <= n_micro - 1``) and
+    ``seifer.gpipe.exchange.edge`` in fill and drain, and the outputs'
+    broadcast in ``seifer.gpipe.broadcast``.
     """
     order = list(stage_order) if stage_order is not None else list(range(n_stages))
     if sorted(order) != list(range(n_stages)):
@@ -184,10 +195,12 @@ def make_gpipe(
         return 0 <= t - stage < n_micro
 
     def encode(y):
-        return quantize_int8(y, quant_block) if compress else (y,)
+        with region("seifer.gpipe.encode"):
+            return quantize_int8(y, quant_block) if compress else (y,)
 
     def decode(wire, dtype):
-        return dequantize_int8(*wire, dtype, block=quant_block) if compress else wire[0]
+        with region("seifer.gpipe.decode"):
+            return dequantize_int8(*wire, dtype, block=quant_block) if compress else wire[0]
 
     def in_turn(stage_params, x):
         local = [tree_map(lambda t, p=p: t[p], stage_params) for p in range(n_stages)]
@@ -199,7 +212,8 @@ def make_gpipe(
                 s = logical[p]
                 if not active(s, t):
                     continue
-                y = stage_fn(local[p], x[t] if s == 0 else bufs.pop(p))
+                with region("seifer.gpipe.compute"):
+                    y = stage_fn(local[p], x[t] if s == 0 else bufs.pop(p))
                 if s == n_stages - 1:
                     outs[t - s] = y
                 else:
@@ -235,7 +249,8 @@ def make_gpipe(
         for t in range(n_micro + n_stages - 1):
             ops, recv = [], []
             if active(s, t):
-                y = stage_fn(local, x[t] if s == 0 else buf)
+                with region("seifer.gpipe.compute"):
+                    y = stage_fn(local, x[t] if s == 0 else buf)
                 if s == n_stages - 1:
                     outs[t - s] = y
                 else:
@@ -246,11 +261,14 @@ def make_gpipe(
                         for shape, dtype in wire_like]
                 ops += [dist.P2POp(dist.irecv, w, rank_of(order[s - 1]), group) for w in recv]
             if ops:
-                for work in dist.batch_isend_irecv(ops):
-                    work.wait()
+                full = n_stages - 1 <= t <= n_micro - 1  # every stage active at tick t
+                with region(_EXCHANGE_REGIONS[full]):
+                    for work in dist.batch_isend_irecv(ops):
+                        work.wait()
             if recv:
                 buf = decode(recv, x.dtype)
-        dist.broadcast(outs, rank_of(order[-1]), group=group)
+        with region("seifer.gpipe.broadcast"):
+            dist.broadcast(outs, rank_of(order[-1]), group=group)
         return outs
 
     def run(stage_params, x):

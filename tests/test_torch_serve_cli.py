@@ -88,7 +88,15 @@ def test_traced_mode_writes_the_jax_clis_chrome_trace(tmp_path, monkeypatch, cap
     want = _jax_cli(monkeypatch, capsys, argv)
     monkeypatch.chdir(tmp_path / "port")
     got = _port_cli(capsys, argv)
-    assert got.splitlines() == want.splitlines()
+    # the port labels the attribution as the virtual clock's model and
+    # prints the engine's admission wait, on the host clock, under it
+    lines = got.splitlines()
+    at = next(i for i, line in enumerate(lines) if line.startswith("admission wait"))
+    assert re.fullmatch(r"admission wait \(host clock\): mean \d+\.\d{3} ms over "
+                        r"[1-9]\d* admissions", lines[at])
+    modelled = [line.replace("requests): ", "requests), modelled (virtual clock): ", 1)
+                if line.startswith("trace (") else line for line in want.splitlines()]
+    assert lines[at - 1].startswith("trace (") and lines[:at] + lines[at + 1:] == modelled
     assert "chrome trace written to trace.json" in got
     traces = [json.loads((tmp_path / side / "trace.json").read_text())
               for side in ("jax", "port")]
