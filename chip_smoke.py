@@ -104,7 +104,14 @@ the first fault:
    counts the fewest operations of any chunking, and the kernel's own Q=64
    count is printed beside it, with
    its segments P, the FLOPs and bytes of the segmented design (state pass
-   and folds counted) and its time unsegmented (P=1) against P.
+   and folds counted) and its time unsegmented (P=1) against P.  The
+   split-TF32 f32 GEMM (``matmul_f32``, demo_transformer's products) at
+   phi-2's served shapes (32768 rows: 2560 -> 7680, 2560, 10240 and 10240
+   -> 2560), a ragged m and the CLI's d=32, beside its plain version (``x @
+   w``, cuBLAS's f32 SGEMM with TF32 off) and ``torch.matmul`` (the same
+   call, ``library_ms``), each with the max error of kernel and plain
+   against an f64 product; the kernel splits the activation itself, so no
+   split pre-pass is timed.
 11. train -- the training path (``runtime.train``, ``lm.loss_fn`` with
    every layer group rematerialized, the flash backward kernel,
    ``runtime.checkpoint``), run before phase 10 (its times come after
@@ -2575,7 +2582,8 @@ def gpipe_at_width(card: str) -> tuple:
     flash = counts["flash_attention_cuda"]
     want = {"flash_attention_cuda": n * GPIPE_MICRO,
             "quantize_int8_cuda": (n - 1) * GPIPE_MICRO,
-            "dequantize_int8_cuda": (n - 1) * GPIPE_MICRO}
+            "dequantize_int8_cuda": (n - 1) * GPIPE_MICRO,
+            "matmul_f32_cuda": 4 * n * GPIPE_MICRO}
     if any(counts[k] != v for k, v in want.items()):
         fail(f"int8 GPipe launches {counts}, want {want}")
     say("entry", f"GPipe (make_gpipe in turn) over demo_transformer {SERVED}: plan cuts "
@@ -2591,7 +2599,8 @@ def gpipe_at_width(card: str) -> tuple:
                  f"in turn {y8_s:.3f} (chain {ref8_s:.3f}); int8 run's launches: flash {flash} "
                  f"({counts['flash_attention_cuda_windowed']} windowed), quantize "
                  f"{counts['quantize_int8_cuda']}, dequantize {counts['dequantize_int8_cuda']}, "
-                 f"dequant_matmul {counts['dequant_matmul_cuda']}; {card}")
+                 f"dequant_matmul {counts['dequant_matmul_cuda']}, f32 GEMM "
+                 f"{counts['matmul_f32_cuda']}; {card}")
     y = y.cpu()
     del x, ref, ref8, y8, ex, executor_for_version
     release()
@@ -2625,7 +2634,8 @@ def gpipe_one_rank(card: str, want) -> None:
         secs = time.perf_counter() - t0
     counts = launched(launch_counts())
     want_counts = {"flash_attention_cuda": n * GPIPE_MICRO,
-                   "flash_attention_cuda_windowed": n * GPIPE_MICRO // 2}
+                   "flash_attention_cuda_windowed": n * GPIPE_MICRO // 2,
+                   "matmul_f32_cuda": 4 * n * GPIPE_MICRO}
     if counts != want_counts:
         fail(f"GPipe over the one-rank NCCL group launched {counts}, not {want_counts}")
     if not torch.equal(y.cpu(), want):
@@ -2691,6 +2701,7 @@ def hold_recorded_calls(calls: dict, what: str, tag: str = "entry",
     import torch
 
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.gemm.ops import matmul_f32_ref
     from repro_torch.kernels.quantize.ref import dequant_matmul_ref, dequantize_ref, quantize_ref
     from repro_torch.kernels.ssm_scan.kernel import KERNEL_CHUNK, default_segments
     from repro_torch.kernels.ssm_scan.ref import ssd_ref_segmented
@@ -2730,6 +2741,10 @@ def hold_recorded_calls(calls: dict, what: str, tag: str = "entry",
             msg = (f"o and lse {worst:.3g} of max|plain|" if kw.get("lse")
                    else f"{worst:.3g} of max|f64| (the f32 plain version {plain_worst:.3g})"
                    if flash_f64 else f"max-abs {worst:.3g}") + f" (pin {pin})"
+        elif name == "matmul_f32_cuda":  # w as the kernel reads it: hi + lo, exact in f32
+            a, hi, lo = args
+            err = rel(out, matmul_f32_ref(a, (hi + lo).t()))
+            ok, msg = err <= TOL_DQMM, f"{err:.3g} of max|plain| (pin {TOL_DQMM})"
         elif name == "ssd_chunked_cuda":
             b, s, h = args[0].shape[:3]
             p = kw.get("segments") or default_segments(b, s, h, args[0].device)
@@ -3383,7 +3398,8 @@ def multi_gpipe(p: int, mc: MultiCard) -> dict:
             want = {"flash_attention_cuda": mc.micro,
                     "flash_attention_cuda_windowed": mc.micro if stage % 2 and w["window"] else 0,
                     "quantize_int8_cuda": mc.micro if compress and stage < n - 1 else 0,
-                    "dequantize_int8_cuda": mc.micro if compress and stage > 0 else 0}
+                    "dequantize_int8_cuda": mc.micro if compress and stage > 0 else 0,
+                    "matmul_f32_cuda": 4 * mc.micro}
             if dev != "cuda":  # the plain versions run on the CPU: no launch
                 want = dict.fromkeys(want, 0)
             got = {k: counts[k] for k in want}
@@ -4007,6 +4023,52 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     return rows
 
 
+# demo_transformer's f32 products at phi-2's widths (the benchmark's
+# cells: 4 x 8192 rows), a ragged m, and the serving CLI's d=32 (q|k|v)
+GEMM_F32_SHAPES = ((32768, 2560, 7680), (32768, 2560, 2560), (32768, 2560, 10240),
+                   (32768, 10240, 2560), (32691, 2560, 2560), (1024, 32, 64))
+
+
+def gemm_f32_times(card: str, launches: int) -> list[dict]:
+    """Phase 10's rows of the f32 GEMM: time, bound (3 TF32 passes), plain
+    and library times, and kernel and plain max error of max|f64|."""
+    import torch
+
+    from repro_torch.kernels.gemm.kernel import matmul_f32_cuda
+    from repro_torch.kernels.gemm.ops import matmul_f32_ref, weight_planes
+
+    rows = []
+    for m, k, n in GEMM_F32_SHAPES:
+        a, w = randn((m, k), 31), randn((k, n), 32, k**-0.5)
+        hi, lo = weight_planes(w)
+        exact = a.double() @ w.double()
+        top = exact.abs().max().item()
+        err = (matmul_f32_cuda(a, hi, lo).double() - exact).abs().max().item() / top
+        plain_err = (matmul_f32_ref(a, w).double() - exact).abs().max().item() / top
+        del exact
+        if not err <= TOL_DQMM:
+            fail(f"matmul_f32 ({m}, {k}) x ({k}, {n}): {err:.3g} of max|f64| (pin {TOL_DQMM})")
+        reps = 20 if m * n * k > 1e9 else 200
+        ms = cuda_time_ms(lambda: matmul_f32_cuda(a, hi, lo), reps)
+        plain_ms = cuda_time_ms(lambda: matmul_f32_ref(a, w), max(1, reps // 2))
+        library_ms = cuda_time_ms(lambda: torch.matmul(a, w), max(1, reps // 2))
+        nbytes, flops = 4 * (m * k + 2 * n * k + m * n), 2 * m * n * k
+        b_ms, b_by, fma_ms = bound_ms(nbytes, flops, F32_PRODUCT_S_PER_FLOP)
+        rows.append({"name": "matmul_f32", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/gemm_f32.cu", "replaces": None,
+                     "launches": launches, "shape": [m, k, n], "max_abs_err": err,
+                     "plain_max_abs_err": plain_err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+                     "prepass_ms": None})
+        say("times", f"matmul_f32 ({m}, {k}) x ({k}, {n}): {ms:.4f} ms, bound {b_ms:.4f} ms "
+                     f"({b_by}, {b_ms / ms:.1%} of it; f32 FMA bound {fma_ms:.4f} ms), plain "
+                     f"{plain_ms:.4f} ms, library {library_ms:.4f} ms; max err of max|f64| "
+                     f"{err:.3g} (plain {plain_err:.3g}); no split pre-pass; {card}")
+        del a, w, hi, lo
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _segments(s: int, q: int, p: int) -> list[list[int]]:
     """Row counts of the chunks of each of the p segments (ref.segment_starts)."""
     rows = [min(q, s - t0) for t0 in range(0, s, q)]
@@ -4102,6 +4164,7 @@ def main() -> None:
         "flash_attention_fwd_hd80_zamba2": zamba["launches"][0],
     }
     rows = phase_times(card, launches, errors)
+    rows += gemm_f32_times(card, counts_tf["matmul_f32_cuda"])
     rows += train_times(card, trained)
     for r in rows:  # the SSD scan's shape is zamba2-2.7b's: its launches a prefill too
         if r["name"] == "ssd_chunked":

@@ -325,6 +325,11 @@ def demo_transformer(d: int = 32, n_layers: int = 4, seq: int = 256,
     (version -> ``{"wqkv", "wo", "w1", "w2"}`` stacked over layers)
     supplies them.  The MLP's GELU is the tanh approximation, which is what
     ``jax.nn.gelu`` computes by default.
+
+    The f32 products ``x @ Wqkv``, ``o @ Wo``, ``y @ W1`` and ``gelu(.) @
+    W2`` go through ``kernels.gemm.matmul_f32``: on a CUDA device the
+    split-TF32 GEMM, which reads each weight as its TF32 planes, split once
+    per version here; on the CPU ``x @ w``.
     """
     import torch
     import torch.nn.functional as F
@@ -332,6 +337,7 @@ def demo_transformer(d: int = 32, n_layers: int = 4, seq: int = 256,
     from repro_torch.core.execution import resolve_device
     from repro_torch.core.graph import chain
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gemm import ops as gemm_ops
     from repro_torch.kernels.quantize import dequant_matmul
     from repro_torch.runtime.pipeline import make_layer_executor
 
@@ -358,7 +364,13 @@ def demo_transformer(d: int = 32, n_layers: int = 4, seq: int = 256,
 
     def executor_for_version(version: int):
         p = _weights(params_for_version, version, device, draw)
-        wqkv, wo, w1, w2 = p["wqkv"], p["wo"], p["w1"], p["w2"]
+        wqkv = p["wqkv"]
+        # what the f32 GEMM reads in place of each layer's weight (None on the CPU)
+        planes = {name: [gemm_ops.weight_planes(w) for w in p[name]]
+                  for name in ("wqkv", "wo", "w1", "w2")}
+
+        def mm(x, name, i):
+            return gemm_ops.matmul_f32(x, p[name][i], planes[name][i])
 
         def tail(qkv, out_shape, i, win):
             # everything after the qkv projection: attention + out-proj +
@@ -375,8 +387,8 @@ def demo_transformer(d: int = 32, n_layers: int = 4, seq: int = 256,
                 vv.reshape(n, seq, kv_heads, hd),
                 causal=True, window=win, softcap=softcap,
             )
-            y = o.reshape(n, seq, d) @ wo[i]
-            z = y + F.gelu(y @ w1[i], approximate="tanh") @ w2[i]
+            y = mm(o.reshape(n, seq, d), "wo", i)
+            z = y + mm(F.gelu(mm(y, "w1", i), approximate="tanh"), "w2", i)
             return torch.tanh(z).reshape(out_shape)
 
         def make_layer(i):
@@ -385,7 +397,7 @@ def demo_transformer(d: int = 32, n_layers: int = 4, seq: int = 256,
 
             def layer_fn(x):
                 x = x.to(torch.float32)
-                qkv = x.reshape(-1, seq, d) @ wqkv[i]
+                qkv = mm(x.reshape(-1, seq, d), "wqkv", i)
                 return tail(qkv, x.shape, i, win)
 
             def fused_int8(enc):

@@ -2,7 +2,8 @@
 
 ``quantize`` (int8 boundary codec: quantize, dequantize, fused
 dequant-matmul), ``flash_attention`` (forward and backward) and
-``ssm_scan`` (the chunked Mamba2 SSD scan, forward and backward).  CUDA sources live in
+``ssm_scan`` (the chunked Mamba2 SSD scan, forward and backward) and
+``gemm`` (demo_transformer's f32 products on split-TF32 ``wgmma``).  CUDA sources live in
 ``csrc/`` and are built at the first CUDA call (``_build``).
 """
 
@@ -10,6 +11,7 @@ from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_bwd_cuda,
     flash_attention_cuda,
 )
+from repro_torch.kernels.gemm.kernel import matmul_f32_cuda
 from repro_torch.kernels.quantize.kernel import (
     dequant_matmul_cuda,
     dequantize_int8_cuda,
@@ -26,6 +28,7 @@ KERNEL_WRAPPERS = (
     flash_attention_bwd_cuda,
     ssd_chunked_cuda,
     ssd_chunked_bwd_cuda,
+    matmul_f32_cuda,
 )
 
 

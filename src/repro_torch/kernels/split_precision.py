@@ -1,8 +1,9 @@
 """The split-precision arithmetic of the tensor-core kernels, in plain PyTorch.
 
 ``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``,
-``csrc/quantize.cu`` (dequant_matmul), ``csrc/ssd_scan.cu`` and
-``csrc/ssd_scan_bwd.cu`` take their products on the TF32 tensor cores (the
+``csrc/quantize.cu`` (dequant_matmul), ``csrc/ssd_scan.cu``,
+``csrc/ssd_scan_bwd.cu`` and ``csrc/gemm_f32.cu`` (demo_transformer's f32
+products, ``matmul_3xtf32``) take their products on the TF32 tensor cores (the
 SSD scan with the cheaper truncating split, ``split_trunc``; the flash
 backward with Veltkamp's split on the f32 pipe, ``split_fp``, for S and the
 truncating one for its other products; the SSD backward with the
@@ -271,3 +272,14 @@ def ssd_backward_emulated(xs, bm, cm, dt, a, dy, *, group: int = 8, matmul=None)
 
     return ssd_backward_ref_grouped(xs, bm, cm, dt, a, dy, chunk=KERNEL_CHUNK, group=group,
                                     matmul=product)
+
+
+GEMM_K_SLICE = 32  # k the f32 GEMM's fresh fragment takes (12 wgmma), then an f32 add
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The f32 GEMM's arithmetic (``csrc/gemm_f32.cu``): both operands split
+    by ``split`` (the activation in the kernel, the weight once a version
+    into its planes), a_lo.b_hi + a_hi.b_lo + a_hi.b_hi over slices of 32 k,
+    the slices' sums added in f32 in order."""
+    return matmul_split3_k(a, b, split, k_group=GEMM_K_SLICE)

@@ -22,6 +22,8 @@ import torch
 
 from repro_torch.core.execution import resolve_device
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.gemm.kernel import matmul_f32_cuda
+from repro_torch.kernels.gemm.ops import matmul_f32_ref, weight_planes
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.quantize.kernel import (
     dequant_matmul_cuda,
@@ -161,6 +163,101 @@ def test_dequant_matmul_edges(cuda, n, d, dout, block, dtype):
     assert out.dtype == dtype and out.shape == (n, dout)
     rel = (out.float() - ref).abs().max().item() / ref.abs().max().item()
     assert rel <= (1e-5 if dtype == torch.float32 else 2.0**-8 + 1e-5)
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 32, 64), (300, 36, 68), (1000, 32, 64), (129, 100, 132), (777, 2560, 2560),
+    (32768, 2560, 7680), (32768, 2560, 2560), (32768, 2560, 10240), (32768, 10240, 2560),
+])
+def test_gemm_f32_as_accurate_as_f32(cuda, m, k, n):
+    """The split-TF32 GEMM against an f64 product: within 1e-5 of max|f64|
+    (the f32 pin of the tensor-core kernels) at every shape, and at the
+    served inner dims (k >= 2560, where the f32 product's own rounding
+    dominates) within twice the plain f32 product's error, max-abs and
+    Frobenius.  Ragged m, n and k (multiples of 4) are masked."""
+    a = _randn((m, k), 21, cuda)
+    w = _randn((k, n), 22, cuda, scale=k**-0.5)
+    out = matmul_f32_cuda(a, *weight_planes(w))
+    plain = matmul_f32_ref(a, w)
+    torch.cuda.synchronize()
+    exact = a.double() @ w.double()
+    top = exact.abs().max().item()
+    err = (out.double() - exact).abs().max().item() / top
+    assert out.shape == (m, n) and err <= 1e-5
+    if k >= 2560:
+        assert err <= 2 * (plain.double() - exact).abs().max().item() / top
+        assert ((out.double() - exact).norm().item()
+                <= 2 * (plain.double() - exact).norm().item())
+
+
+def test_gemm_f32_takes_leading_dims_and_refuses_layouts(cuda):
+    a = _randn((2, 3, 64), 23, cuda)
+    w = _randn((64, 40), 24, cuda, scale=0.125)
+    hi, lo = weight_planes(w)
+    out = matmul_f32_cuda(a, hi, lo)
+    ref = (a.double() @ w.double()).float()
+    torch.cuda.synchronize()
+    assert out.shape == (2, 3, 40)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul_f32_cuda(_randn((64, 8), 25, cuda).t(), hi, lo)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        matmul_f32_cuda(torch.empty(3 * 64 + 1, device=cuda)[1:].view(3, 64), hi, lo)
+    empty = matmul_f32_cuda(torch.empty((0, 64), device=cuda), hi, lo)
+    assert empty.shape == (0, 40)
+
+
+def test_gemm_f32_raises_on_an_unaligned_product(cuda):
+    """On the card an f32 product the kernel does not take raises, in
+    ``matmul_f32`` and in demo_transformer's layer (d=6): nothing gives way
+    to the plain product."""
+    from repro_torch.core.model_zoo import demo_transformer
+    from repro_torch.kernels.gemm.ops import matmul_f32
+
+    w = _randn((30, 64), 27, cuda)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        matmul_f32(_randn((8, 30), 28, cuda), w, weight_planes(w))
+    _, ex_for = demo_transformer(d=6, n_layers=1, seq=8, heads=2, kv_heads=1, mlp_mult=2,
+                                 device="cuda")
+    with pytest.raises(ValueError, match="multiples of 4"), torch.no_grad():
+        ex_for(0)(0, 1, _randn((8, 6), 29, cuda))
+
+
+def test_demo_transformer_products_run_the_gemm(cuda):
+    """demo_transformer on the card sends its four f32 products a layer
+    through the GEMM (three after a fused int8 receive) and matches the
+    CPU run within 1e-4 of max|cpu| at d=256 (hd 64)."""
+    from repro_torch.core.model_zoo import demo_transformer
+    from repro_torch.dataplane.base import EncodedActivation
+    from repro_torch.dataplane.registry import get_codec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    def params(version):
+        rng = np.random.default_rng(200 + version)
+        shapes = {"wqkv": (2, 256, 512), "wo": (2, 256, 256), "w1": (2, 256, 512),
+                  "w2": (2, 512, 256)}
+        return {k: rng.standard_normal(v, dtype=np.float32) / np.sqrt(v[1])
+                for k, v in shapes.items()}
+
+    kw = dict(d=256, n_layers=2, seq=128, heads=4, kv_heads=2, mlp_mult=2, window=64,
+              params_for_version=params)
+    x = _randn((2, 128, 256), 26, cuda)
+    out = {}
+    for device in ("cuda", "cpu"):
+        ex = demo_transformer(**kw, device=device)[1](0)
+        with torch.no_grad():
+            reset_launch_counts()
+            out[device] = ex(0, 2, x.to(device))
+            if device == "cuda":
+                torch.cuda.synchronize()
+                assert launch_counts()["matmul_f32_cuda"] == 8
+                codec = get_codec("int8")
+                reset_launch_counts()
+                ex(1, 2, EncodedActivation(codec, codec.encode(x)))
+                counts = launch_counts()
+                assert counts["matmul_f32_cuda"] == 3 and counts["dequant_matmul_cuda"] == 1
+    top = out["cpu"].abs().max().item()
+    assert (out["cuda"].cpu() - out["cpu"]).abs().max().item() <= 1e-4 * top
 
 
 def _flash_case(cuda, b, s, h, kh, hd, seed):
