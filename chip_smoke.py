@@ -34,6 +34,14 @@ the first fault:
 6. serve demo_ssm at zamba2-2.7b's Mamba2 mixer width (d = d_inner = 5120,
    80 heads of 64, N=64, S=8192, 6 layers) the same way as phase 4: the
    SSD scan, quantize and dequantize kernels launched.
+6b. serve Zamba2-7B's twelve layers as the benchmark's zamba2-edge-closed
+   deploys them (``core/model_zoo.zamba2_hybrid`` at the widths, cluster
+   and codec of ``seifer_bench/configs/zamba2-7b-edge.json``: four stages,
+   three int8 hops carrying [h | x0]): a warm-up microbatch of 4 x 4096
+   tokens, then one with the launch counters reset, whose grouped scans,
+   flash, f32 GEMMs, quantize and dequantize are counted (phase 10's Zamba2
+   rows print these counts).  ``python3 chip_smoke.py --zamba2`` runs the
+   build, this phase and its two rows of phase 10 alone.
 7. serve two tenants on one cluster, ``deploy([TenantSpec("ssm", ...),
    TenantSpec("transformer", ...)])`` (phase 6's demo_ssm, and phase 4's
    demo_transformer cut to 2 layers), int8 hops in both; a ``NodeFailed``
@@ -4023,6 +4031,168 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     return rows
 
 
+# Zamba2-7B's layers as the benchmark's zamba2-edge-closed serves them
+# (core/model_zoo.zamba2_hybrid): a microbatch of 4 x 4096 tokens, 12 layers
+ZAMBA2 = dict(seq=4096, mamba_heads=112, head=64, state=64, groups=2, attn_heads=32,
+              attn_head_dim=224)
+ZAMBA2_CONFIG = ROOT / "seifer_bench" / "configs" / "zamba2-7b-edge.json"
+ZAMBA2_FLAG = "--zamba2"  # phase 10's Zamba2 rows alone, after phase 6b
+ZAMBA2_COUNTED = ("ssd_chunked_cuda", "ssd_chunked_cuda_grouped", "flash_attention_cuda",
+                  "matmul_f32_cuda", "quantize_int8_cuda", "dequantize_int8_cuda")
+
+
+def phase_serve_zamba2(card: str) -> dict:
+    """Phase 6b: the benchmark's zamba2-edge-closed deployment (its
+    configuration's widths, cluster and codec: four stages, three int8
+    hops) through ``deploy``, one warm-up microbatch of 4 x 4096 tokens,
+    then one more with the launch counters reset: every result a finite
+    CUDA tensor, and the kernels one microbatch launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import ClusterSpec, DeploymentSpec, deploy
+    from repro_torch.core.model_zoo import zamba2_hybrid
+    from repro_torch.core.placement import CommGraph
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = json.loads(ZAMBA2_CONFIG.read_text())
+    m, dep = cfg["model"], cfg["deployment"]
+    widths = {k: v for k, v in m.items() if k not in ("kind", "layer_types") and
+              not k.startswith("time_step")}
+    graph, ex = zamba2_hybrid(**widths, layer_types=tuple(m["layer_types"]), device="cuda")
+    comm = CommGraph(bw=np.asarray(dep["cluster"]["bw"], float),
+                     node_capacity=np.asarray(dep["cluster"]["capacity"], float))
+    t0 = time.perf_counter()
+    d = deploy(DeploymentSpec(
+        model=graph, executor_for_version=ex, cluster=ClusterSpec(comm=comm),
+        codec=dep["codec"], serving=dep["serving"], queue_depth=dep["queue_depth"],
+        microbatch=dep["microbatch"], seed=dep["seed"], device="cuda"))
+    stages = [[p.partition.start, p.partition.stop] for p in d.control.pipeline.pods]
+    if stages != dep["stages"] or list(d.plan.codecs) != dep["codecs"]:
+        fail(f"zamba2_hybrid deployed as {stages} {list(d.plan.codecs)}, not as "
+             f"zamba2-edge-closed's {dep['stages']} {dep['codecs']}")
+    shape = (m["seq"], 2 * m["d"])
+    for round_ in range(2):
+        if round_:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            mb0 = d.loop.metrics()["microbatches"]
+        reqs = [d.submit(randn(shape, 900 + 10 * round_ + i)) for i in range(MICROBATCH)]
+        done = d.drain()
+        torch.cuda.synchronize()
+        if len(done) != MICROBATCH:
+            fail(f"zamba2_hybrid: {len(done)} of {MICROBATCH} requests completed")
+    counts = launch_counts()
+    microbatches = d.loop.metrics()["microbatches"] - mb0
+    check_served(reqs, shape, "zamba2_hybrid")
+    per = {k: counts[k] / max(1, microbatches) for k in ZAMBA2_COUNTED}
+    say("serve", f"zamba2_hybrid (zamba2-edge-closed) deployed in {time.perf_counter() - t0:.1f} "
+                 f"s, stages {stages}, {graph.total_param_bytes / 1e9:.2f} GB of layer weights; "
+                 f"{microbatches} microbatch, launches a microbatch {per}; {card}")
+    if microbatches != 1 or per["ssd_chunked_cuda_grouped"] != per["ssd_chunked_cuda"] or not all(
+            per[k] for k in ZAMBA2_COUNTED if k != "ssd_chunked_cuda"):
+        fail(f"zamba2_hybrid's microbatch did not launch the grouped scan, flash, the GEMM "
+             f"and the codec: {per}")
+    del d, reqs, done
+    torch.cuda.empty_cache()
+    return per
+
+
+def zamba2_times(card: str, launches: dict) -> list[dict]:
+    """Phase 10's rows of the two kernel paths only Zamba2-7B reaches: the SSD
+    scan with B and C in 2 groups and flash at hd 224 with the caller's
+    scale (hd / 2)^-0.5, at the cell's shapes, each against its plain
+    version (the scan's error against ``ssd_ref_segmented`` at the kernel's
+    own segments, flash's against ``attention_ref`` four heads at a time);
+    bounds as the benchmark's readers count them; flash's library call is
+    ``scaled_dot_product_attention`` at the same scale.  ``launches``: phase
+    6b's counts a microbatch."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssm_scan.kernel import (
+        KERNEL_CHUNK,
+        default_segments,
+        ssd_chunked_cuda,
+    )
+    from repro_torch.kernels.ssm_scan.ref import ssd_ref, ssd_ref_segmented
+
+    z, n = ZAMBA2, MICROBATCH
+    s, h, dh, ns, g = z["seq"], z["mamba_heads"], z["head"], z["state"], z["groups"]
+    rows = []
+
+    def row(name, kernel, plain, err, reps, nbytes, flops, shape, launches, library=None):
+        ms = cuda_time_ms(kernel, reps)
+        plain_ms = cuda_time_ms(plain, 1)
+        b_ms, b_by, fma_ms = bound_ms(nbytes, flops, F32_PRODUCT_S_PER_FLOP)
+        rows.append({"name": name, "route": "cuda", "launches": launches, "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": library, "shape": list(shape)})
+        lib = "none" if library is None else f"{library:.4f} ms"
+        say("times", f"{name} {shape}: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                     f"{b_ms / ms:.1%} of it; f32 FMA bound {fma_ms:.4f} ms), plain "
+                     f"{plain_ms:.4f} ms, library {lib}; max err of max|plain| {err:.3g}; {card}")
+
+    xs = randn((n, s, h, dh), 41, 0.5)
+    bm, cm = randn((n, s, g, ns), 42, 0.5), randn((n, s, g, ns), 43, 0.5)
+    dt = torch.nn.functional.softplus(randn((n, s, h), 44) - 4.0)
+    a = -torch.exp(randn((h,), 45, 0.3))
+    args = (xs, bm, cm, dt, a)
+    p = default_segments(n, s, h, xs.device)
+    out = ssd_chunked_cuda(*args, chunk=s)
+    same = ssd_ref_segmented(*args, chunk=KERNEL_CHUNK, segments=p)
+    err = ((out - same).abs().max() / same.abs().max()).item()
+    del out, same
+    if not err <= TOL_SSD:
+        fail(f"grouped ssd_chunked: {err:.3g} of max|plain| (pin {TOL_SSD})")
+    # the fewest operations (C B^T once a group) or the bytes, as
+    # seifer_bench/metrics/mamba2_scan_roofline.py counts them
+    flops = 0
+    for r, count in costs._chunks(s, 64):
+        flops += count * (g * r * (r + 1) * ns + h * (r * (r + 1) * dh + 4 * r * ns * dh + ns * dh))
+    nbytes = (2 * n * s * h * dh + 2 * n * s * g * ns + n * s * h + h) * 4
+    row("ssd_chunked_grouped", lambda: ssd_chunked_cuda(*args, chunk=s),
+        lambda: ssd_ref(*args, chunk=KERNEL_CHUNK), err, 20, nbytes, n * flops,
+        (n, s, h, dh, ns, g, f"P={p}"), launches["ssd_chunked_cuda_grouped"])
+    del xs, bm, cm, dt, a, args
+    torch.cuda.empty_cache()
+
+    ah, hd = z["attn_heads"], z["attn_head_dim"]
+    scale = (hd / 2) ** -0.5
+    qkv = randn((n, s, 3, ah, hd), 46)
+    q, k, v = qkv[:, :, 0].contiguous(), qkv[:, :, 1].contiguous(), qkv[:, :, 2]
+    out = flash_attention_cuda(q, k, v, causal=True, scale=scale)
+    err, top = 0.0, 0.0
+    for j in range(0, ah, 4):
+        ref = attention_ref(q[:, :, j:j + 4], k[:, :, j:j + 4], v[:, :, j:j + 4].contiguous(),
+                            causal=True, scale=scale)
+        err = max(err, (out[:, :, j:j + 4] - ref).abs().max().item())
+        top = max(top, ref.abs().max().item())
+    del out, ref
+    if not err <= TOL_FLASH:
+        fail(f"flash hd {hd}: {err:.3g} from the plain version (pin {TOL_FLASH})")
+
+    def plain():
+        for j in range(0, ah, 4):
+            attention_ref(q[:, :, j:j + 4], k[:, :, j:j + 4], v[:, :, j:j + 4], causal=True,
+                          scale=scale)
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale), 3)
+    del qt, kt, vt
+    row("flash_attention_fwd_hd224_zamba2",
+        lambda: flash_attention_cuda(q, k, v, causal=True, scale=scale), plain, err / top, 3,
+        costs.flash_fwd_bytes(n, s, ah, ah, hd), costs.flash_fwd_flops(n, s, ah, hd),
+        (n, s, ah, ah, hd, "causal, scale (hd/2)^-0.5"), launches["flash_attention_cuda"],
+        library=library)
+    del qkv, q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
 # demo_transformer's f32 products at phi-2's widths (the benchmark's
 # cells: 4 x 8192 rows), a ragged m, and the serving CLI's d=32 (q|k|v)
 GEMM_F32_SHAPES = ((32768, 2560, 7680), (32768, 2560, 2560), (32768, 2560, 10240),
@@ -4132,12 +4302,23 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if ZAMBA2_FLAG in sys.argv[1:]:  # phase 6b and its rows of phase 10 alone
+        phase_build()
+        rows = zamba2_times(card, phase_serve_zamba2(card))
+        say("done", f"chip_smoke.py {ZAMBA2_FLAG} ran in {time.perf_counter() - start:.0f} s")
+        print(json.dumps({"kernels": rows}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     phase_build()
     errors = phase_parity()
     errors["ssd_chunked"] = phase_parity_ssd()
     counts_tf, per_request = phase_serve_transformer()
     phase_serve_mlp()
     counts_ssm, per_request_ssm = phase_serve_ssm()
+    counts_zamba2 = phase_serve_zamba2(card)
     phase_serve_tenants()
     phase_reference()
     served_lm = phase_lm(card)
@@ -4165,6 +4346,7 @@ def main() -> None:
     }
     rows = phase_times(card, launches, errors)
     rows += gemm_f32_times(card, counts_tf["matmul_f32_cuda"])
+    rows += zamba2_times(card, counts_zamba2)
     rows += train_times(card, trained)
     for r in rows:  # the SSD scan's shape is zamba2-2.7b's: its launches a prefill too
         if r["name"] == "ssd_chunked":

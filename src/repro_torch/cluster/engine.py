@@ -279,6 +279,16 @@ class PipelinedServingLoop:
         entered the system yet.)"""
         return len(self.queue) + sum(len(m.requests) for m in self._inflight)
 
+    def computing(self, start: int) -> list[Request]:
+        """The requests of the microbatch that the stage whose partition
+        starts at layer ``start`` is computing, in the microbatch's row
+        order (empty while it computes nothing): what a wrapped executor
+        asks to tell whose rows it was handed."""
+        for st in self._stages:
+            if st.pod.partition.start == start and st.current is not None:
+                return list(st.current.requests)
+        return []
+
     # -- one serving round -----------------------------------------------------
     def step(self) -> list[Request]:
         """Advance the virtual clock until the next completion (or idle).

@@ -415,3 +415,229 @@ def demo_transformer(d: int = 32, n_layers: int = 4, seq: int = 256,
         return make_layer_executor([make_layer(i) for i in range(n_layers)])
 
     return graph, executor_for_version
+
+
+def _zamba2_shapes(d: int, d_in: int, mamba_heads: int, groups: int, state: int, conv: int,
+                   attn_heads: int, attn_head_dim: int, ffn: int, adapter_rank: int):
+    """Name -> one copy's shape of ``zamba2_hybrid``'s weights, in three
+    kinds: a Mamba2 layer's, a shared block's and a hybrid layer's own."""
+    conv_dim = d_in + 2 * groups * state
+    ad = attn_heads * attn_head_dim
+    mamba = {"in_norm": (d,), "in_proj": (d, d_in + conv_dim + mamba_heads),
+             "conv_w": (conv, conv_dim), "conv_b": (conv_dim,), "dt_bias": (mamba_heads,),
+             "A_log": (mamba_heads,), "D": (mamba_heads,), "norm_w": (d_in,),
+             "out_proj": (d_in, d)}
+    block = {"attn_norm": (2 * d,), "wqkv": (2 * d, 3 * ad), "wo": (ad, d), "ffn_norm": (d,),
+             "w_gu": (d, 2 * ffn), "w_down": (ffn, d)}
+    hybrid = {"adapter_a": (d, adapter_rank), "adapter_b": (adapter_rank, 2 * ffn),
+              "w_lin": (d, d)}
+    return mamba, block, hybrid
+
+
+def zamba2_hybrid(d: int = 64, d_in: int = 128, mamba_heads: int = 8, groups: int = 2,
+                  state: int = 16, conv: int = 4, attn_heads: int = 2, attn_head_dim: int = 64,
+                  ffn: int = 128, adapter_rank: int = 8,
+                  layer_types: tuple[str, ...] = ("hybrid", "mamba", "mamba"),
+                  seq: int = 64, *, mem_blocks: int = 2, hybrid_offset: int = 0,
+                  chunk: int = 256, rope_theta: float = 10000.0, eps: float = 1e-5,
+                  device="cuda",
+                  params_for_version: Callable[[int], Mapping[str, Any]] | None = None):
+    """Zamba2's layers as an executable model (Zamba2-7B: d 3584, d_in 7168,
+    112 Mamba2 heads of 64 in 2 B / C groups, state 64, conv 4; 32 attention
+    heads of 224 over the 7168-wide concatenation, a gated GELU MLP of 14336,
+    rank-128 adapters), with Hugging Face transformers' ``modeling_zamba2``
+    layer equations.
+
+    ``layer_types`` gives each layer's kind: ``"mamba"`` (a Mamba2 layer) or
+    ``"hybrid"`` (a shared transformer block, then a Mamba2 layer).  The
+    ``mem_blocks`` shared blocks are used in turn: the model's k-th hybrid
+    layer takes block k mod ``mem_blocks``, and ``hybrid_offset`` counts the
+    hybrid layers that precede the first one here.  Each hybrid layer has its
+    own MLP adapter and output linear.  With h the residual stream and x0
+    the embedding output:
+
+    - shared block: c = RMSNorm([h | x0]); q, k, v = c W_qkv (rotary over
+      all ``attn_head_dim`` dims, theta ``rope_theta``, angles in f64); causal attention
+      scaled by (hd / 2)^-0.5; m = RMSNorm(o W_o); [gate | up] = m W_gu +
+      (m A_l) B_l; t = ((gelu_erf(gate) up) W_down) W_lin,l;
+    - Mamba2 layer: a = RMSNorm(h + t) (t = 0 on a Mamba2-only layer);
+      [z | xBC | dt] = a W_in; xBC = silu(conv(xBC) + b); [x | B | C];
+      dt = softplus(dt + dt_bias); A = -exp(A_log); y = SSD scan (head j
+      reading B / C group j // (heads / groups)) + D x; out = h + RMSNorm_G(y
+      silu(z)) W_out, the residual taken before t is added.
+
+    Every norm is RMSNorm at ``eps`` with a weight; no product has a bias.
+    The activation between layers and stages is one (seq, 2 d) tensor [h |
+    x0]: every hybrid layer reads x0, which passes through unchanged.  Every
+    product runs ``kernels.gemm.matmul_f32`` (weight planes split once a
+    version), the scan ``ssd_chunked`` with grouped B and C, attention
+    ``flash_attention`` at the given scale.  There is no fused int8 receive
+    (every layer starts with a norm): an int8 hop decodes through
+    ``dequantize_int8``.
+
+    Weights are held once a version: a shared block's tensors are the same
+    objects in every hybrid layer that uses it, and each layer fn carries
+    them as ``.block`` (the executor's ``.layer_fns``; ``.params`` holds the
+    version's weights).  The layer graph
+    counts a block's bytes on every hybrid layer that uses it, since the
+    planner may place those layers on different nodes.  ``params_for_version``
+    (version -> flat arrays: each Mamba2 weight stacked over the layers, each
+    block weight over the ``mem_blocks`` blocks, each adapter and linear over
+    the hybrid layers, in order; ``_zamba2_shapes`` names them) supplies the
+    weights; else they are drawn from ``torch.Generator(device)`` seeded by
+    the version.  The executor counts each block's calls in
+    ``.shared_calls``.  Regions: ``seifer.zamba2.mixer`` (a Mamba2 layer),
+    ``seifer.zamba2.scan`` (its scan) and ``seifer.zamba2.shared`` (a shared
+    block with its adapter and linear).
+    """
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.execution import resolve_device
+    from repro_torch.core.graph import chain
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gemm import ops as gemm_ops
+    from repro_torch.kernels.ssm_scan import ssd_chunked
+    from repro_torch.models.common import silu, softplus
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.ssm import causal_conv, gated_rmsnorm, split_xbc
+    from repro_torch.obs.trace import region
+    from repro_torch.runtime.pipeline import make_layer_executor
+
+    if any(t not in ("mamba", "hybrid") for t in layer_types):
+        raise ValueError(f"layer_types holds 'mamba' or 'hybrid', got {layer_types}")
+    if d_in % mamba_heads or mamba_heads % groups or d_in % groups:
+        raise ValueError(f"need d_in % mamba_heads == 0 and mamba_heads % groups == 0, got "
+                         f"d_in={d_in}, mamba_heads={mamba_heads}, groups={groups}")
+    if attn_head_dim % 2:
+        raise ValueError(f"rotary needs an even head dim, got {attn_head_dim}")
+    device = resolve_device(device)
+    n_layers = len(layer_types)
+    hybrids = [i for i, t in enumerate(layer_types) if t == "hybrid"]
+    block_of = {i: (hybrid_offset + k) % mem_blocks for k, i in enumerate(hybrids)}
+    p_head = d_in // mamba_heads
+    conv_dim = d_in + 2 * groups * state
+    ad = attn_heads * attn_head_dim
+    mamba_s, block_s, hybrid_s = _zamba2_shapes(d, d_in, mamba_heads, groups, state, conv,
+                                                attn_heads, attn_head_dim, ffn, adapter_rank)
+
+    def nbytes(shapes):
+        return 4 * sum(math.prod(s) for s in shapes.values())
+
+    act_bytes = seq * 2 * d * ACT_BYTES
+    layer_bytes = [nbytes(mamba_s) + (nbytes(block_s) + nbytes(hybrid_s) if i in block_of else 0)
+                   for i in range(n_layers)]
+    graph = chain(f"zamba2_{n_layers}", [(b, act_bytes) for b in layer_bytes],
+                  in_bytes=act_bytes)
+    stacked = ([(k, n_layers, s) for k, s in mamba_s.items()]
+               + [(k, mem_blocks, s) for k, s in block_s.items()]
+               + [(k, len(hybrids), s) for k, s in hybrid_s.items()])
+
+    def draw(gen):
+        def normal(lead, shape, fan_in):
+            return torch.randn((lead, *shape), generator=gen, device=device) * fan_in**-0.5
+
+        def uniform(lead, shape, lo, hi):
+            return torch.rand((lead, *shape), generator=gen, device=device) * (hi - lo) + lo
+
+        out = {}
+        for name, lead, shape in stacked:
+            if name.endswith("norm") or name.endswith("norm_w") or name == "D":
+                out[name] = torch.ones((lead, *shape), device=device)
+            elif name == "A_log":
+                out[name] = torch.log(uniform(lead, shape, 1.0, 16.0))
+            elif name == "dt_bias":  # softplus^-1 of dt, log-uniform on [1e-3, 0.1]
+                dt = torch.exp(uniform(lead, shape, math.log(1e-3), math.log(0.1)))
+                out[name] = dt + torch.log(-torch.expm1(-dt))
+            else:
+                out[name] = normal(lead, shape, conv if name.startswith("conv") else shape[0])
+        return out
+
+    # rotate-half tables; the angles (up to S radians) in f64, rounded once
+    freq = rope_theta ** (-torch.arange(0, attn_head_dim, 2, dtype=torch.float64,
+                                        device=device) / attn_head_dim)
+    angles = torch.arange(seq, dtype=torch.float64, device=device)[:, None] * freq[None]
+    angles = torch.cat([angles, angles], -1)
+    cos = angles.cos().float()[:, None, :]  # (S, 1, hd)
+    sin = angles.sin().float()[:, None, :]
+    half = attn_head_dim // 2
+
+    def rotary(x):
+        rot = torch.cat([-x[..., half:], x[..., :half]], -1)
+        return x * cos + rot * sin
+
+    def executor_for_version(version: int):
+        p = _weights(params_for_version, version, device, draw)
+        planes = {name: [gemm_ops.weight_planes(w) for w in p[name]]
+                  for name in ("in_proj", "out_proj", "wqkv", "wo", "w_gu", "w_down",
+                               "adapter_a", "adapter_b", "w_lin")}
+        blocks = [{name: (p[name][j], planes.get(name, [None] * mem_blocks)[j])
+                   for name in block_s} for j in range(mem_blocks)]
+        shared_calls = [0] * mem_blocks
+
+        def mm(x, pair):
+            return gemm_ops.matmul_f32(x, *pair)
+
+        def own(name, i):
+            return p[name][i], planes[name][i]
+
+        def shared(hx, j, k):
+            """t of hybrid layer k (block j) over [h | x0] (n, S, 2d)."""
+            blk = blocks[j]
+            n = hx.shape[0]
+            c = rmsnorm(hx, blk["attn_norm"][0], eps=eps)
+            qkv = mm(c, blk["wqkv"]).view(n, seq, 3, attn_heads, attn_head_dim)
+            o = flash_attention(rotary(qkv[:, :, 0]), rotary(qkv[:, :, 1]), qkv[:, :, 2],
+                                causal=True, scale=(attn_head_dim / 2) ** -0.5)
+            m = rmsnorm(mm(o.reshape(n, seq, ad), blk["wo"]), blk["ffn_norm"][0], eps=eps)
+            gu = mm(m, blk["w_gu"]) + mm(mm(m, own("adapter_a", k)), own("adapter_b", k))
+            f = mm(F.gelu(gu[..., :ffn]) * gu[..., ffn:], blk["w_down"])
+            shared_calls[j] += 1
+            return mm(f, own("w_lin", k))
+
+        def mixer(h, t, i):
+            """The Mamba2 layer i over h (n, S, d), its input h + t."""
+            n = h.shape[0]
+            u = h if t is None else h + t
+            zxbcdt = mm(rmsnorm(u, p["in_norm"][i], eps=eps), own("in_proj", i))
+            z = zxbcdt[..., :d_in]
+            xbc = silu(causal_conv(zxbcdt[..., d_in:d_in + conv_dim], p["conv_w"][i],
+                                   p["conv_b"][i]))
+            dt = softplus(zxbcdt[..., d_in + conv_dim:] + p["dt_bias"][i])
+            x, bm, cm = split_xbc(xbc, d_in, state, groups)
+            xs = x.reshape(n, seq, mamba_heads, p_head).contiguous()
+            with region("seifer.zamba2.scan"):
+                y = ssd_chunked(xs, bm, cm, dt.contiguous(), -torch.exp(p["A_log"][i]),
+                                chunk=chunk)
+            y = y + xs * p["D"][i][None, None, :, None]
+            g = gated_rmsnorm(y.reshape(n, seq, d_in), z, p["norm_w"][i], n_groups=groups,
+                              eps=eps)
+            return h + mm(g, own("out_proj", i))
+
+        def make_layer(i):
+            j = block_of.get(i)
+            k = hybrids.index(i) if j is not None else None
+
+            def layer_fn(x):
+                hx = x.to(torch.float32).reshape(-1, seq, 2 * d)
+                t = None
+                if j is not None:
+                    with region("seifer.zamba2.shared"):
+                        t = shared(hx, j, k)
+                with region("seifer.zamba2.mixer"):
+                    h = mixer(hx[..., :d], t, i)
+                return torch.cat([h, hx[..., d:]], -1).reshape(x.shape)
+
+            layer_fn.block = None if j is None else blocks[j]
+            return layer_fn
+
+        layer_fns = [make_layer(i) for i in range(n_layers)]
+        executor = make_layer_executor(layer_fns)
+        executor.layer_fns = layer_fns
+        executor.params = p
+        executor.shared_calls = shared_calls
+        return executor
+
+    return graph, executor_for_version

@@ -42,7 +42,7 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _L, _L, _L, _L, _L, _L, _I, _I, _F, _F, _P,
     ],
-    "seifer_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "seifer_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "seifer_ssd_scan_bwd": [*[_P] * 16, _I, _I, _I, _I, _I, _I, _P],
     "seifer_gemm_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
 }

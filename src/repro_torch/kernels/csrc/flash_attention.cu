@@ -17,7 +17,9 @@
 // form (wgmma would want V transposed in shared memory; later work).
 //
 // Head dims: 64, 80, 112, 128, 160 and 256 (every one the LM zoo's configs
-// use), each a multiple of 16.
+// use) and 224 (Zamba2-7B's shared attention), each a multiple of 16.  The
+// caller gives the softmax scale: hd^-0.5 for every model but Zamba2, whose
+// attention scales by (hd / 2)^-0.5.
 //
 // One block of 4 warps owns 128 queries of one head (64 at hd > 128); each
 // warp owns 32 query rows as two 16-row fragments (one at hd 256), so every
@@ -66,8 +68,8 @@ constexpr int BK = 32;  // keys per kv tile
 
 // MT 16-row fragments per warp: a K or V fragment, once split, feeds MT
 // products.  Two at hd <= 128 (255 registers at hd 128, two blocks per SM);
-// one above (hd 160, 256), where the O accumulator alone takes 80 or 128
-// registers.
+// one above (hd 160, 224, 256), where the O accumulator alone takes 80, 112
+// or 128 registers.
 template <int HD>
 struct Tile {
   static constexpr int MT = HD <= 128 ? 2 : 1, BQ = 16 * MT * NW;
@@ -361,6 +363,7 @@ extern "C" int seifer_flash_attention_fwd(
     SEIFER_FLASH_CASE(112)
     SEIFER_FLASH_CASE(128)
     SEIFER_FLASH_CASE(160)
+    SEIFER_FLASH_CASE(224)
     SEIFER_FLASH_CASE(256)
 #undef SEIFER_FLASH_CASE
     default:

@@ -43,6 +43,10 @@
 //    then take over.  Row strides of 68 (x, B, C) and 72 (state / scores)
 //    floats put every fragment load of 32 lanes in 32 banks.
 //
+// Grouped B and C (Mamba2's ngroups, Zamba2-7B's 2): bm and cm are (B, S, G,
+// N), and head h reads group h / (H / G).  G = 1 is the (B, S, N) layout:
+// the same offsets, strides and instructions.
+//
 // Two 107 KB blocks of 8 warps share an SM (three 71 KB state-kernel
 // blocks).  What holds the kernel back now is neither bytes nor the tensor
 // pipe but, as far as timings without a profiler of the SM can tell, the
@@ -204,7 +208,7 @@ ssd_scan_kernel(const float* __restrict__ xs, const float* __restrict__ bm,
                 const float* __restrict__ cm, const float* __restrict__ dt,
                 const float* __restrict__ a, float* __restrict__ y,
                 float* __restrict__ ends, float* __restrict__ decays, int S, int H,
-                int dh, int N, int P) {
+                int dh, int N, int G, int P) {
   extern __shared__ __align__(16) float smem[];
   float* sx = smem;              // x[s][d], two chunks
   float* sb = sx + 2 * TILE;     // B[s][n], two chunks
@@ -225,6 +229,8 @@ ssd_scan_kernel(const float* __restrict__ xs, const float* __restrict__ bm,
   const int c_begin = segment_start(seg, n_chunks, P);
   const int nk = segment_start(seg + 1, n_chunks, P) - c_begin;
   const long long seq = (long long)b * H + h;
+  const int grp = h / (H / G);  // the B / C group this head reads
+  const long long bc_stride = (long long)G * N;  // a row of B or C, every group
 
   const auto rows_of = [&](int k) { return min(Q, S - (c_begin + k) * Q); };
   const auto row0 = [&](int k) { return (long long)b * S + (long long)(c_begin + k) * Q; };
@@ -232,10 +238,12 @@ ssd_scan_kernel(const float* __restrict__ xs, const float* __restrict__ bm,
     const long long g0 = row0(k);
     stage_tile<V4>(sx + (k & 1) * TILE, xs + (g0 * H + h) * dh, (long long)H * dh,
                    rows_of(k), dh, tid);
-    stage_tile<V4>(sb + (k & 1) * TILE, bm + g0 * N, N, rows_of(k), N, tid);
+    stage_tile<V4>(sb + (k & 1) * TILE, bm + g0 * bc_stride + (long long)grp * N, bc_stride,
+                   rows_of(k), N, tid);
   };
   const auto stage_c = [&](int k) {
-    stage_tile<V4>(sc, cm + row0(k) * N, N, rows_of(k), N, tid);
+    stage_tile<V4>(sc, cm + row0(k) * bc_stride + (long long)grp * N, bc_stride, rows_of(k), N,
+                   tid);
   };
   const auto stage_dt = [&](int k) {
     if (tid < Q) {
@@ -438,7 +446,7 @@ ssd_scan_kernel(const float* __restrict__ xs, const float* __restrict__ bm,
 template <bool V4>
 static cudaError_t launch(const float* xs, const float* bm, const float* cm, const float* dt,
                           const float* a, float* y, float* ends, float* decays, int B, int S,
-                          int H, int dh, int N, int P, cudaStream_t st) {
+                          int H, int dh, int N, int G, int P, cudaStream_t st) {
   const size_t part = smem_bytes(false), full = smem_bytes(true);
   cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel<false, V4>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)part);
@@ -448,22 +456,23 @@ static cudaError_t launch(const float* xs, const float* bm, const float* cm, con
   if (err != cudaSuccess) return err;
   if (P > 1) {
     ssd_scan_kernel<false, V4><<<dim3((unsigned)(P - 1), (unsigned)H, (unsigned)B), NT, part,
-                                 st>>>(xs, bm, cm, dt, a, y, ends, decays, S, H, dh, N, P);
+                                 st>>>(xs, bm, cm, dt, a, y, ends, decays, S, H, dh, N, G, P);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   ssd_scan_kernel<true, V4><<<dim3((unsigned)P, (unsigned)H, (unsigned)B), NT, full, st>>>(
-      xs, bm, cm, dt, a, y, ends, decays, S, H, dh, N, P);
+      xs, bm, cm, dt, a, y, ends, decays, S, H, dh, N, G, P);
   return cudaGetLastError();
 }
 
 extern "C" int seifer_ssd_scan(const void* xs, const void* bm, const void* cm,
                                const void* dt, const void* a, void* y, void* ends,
-                               void* decays, int B, int S, int H, int dh, int N, int P,
-                               void* stream) {
-  if (dh < 1 || dh > T || N < 1 || N > T || P < 1) return (int)cudaErrorInvalidValue;
+                               void* decays, int B, int S, int H, int dh, int N, int G,
+                               int P, void* stream) {
+  if (dh < 1 || dh > T || N < 1 || N > T || P < 1 || G < 1 || H % G != 0)
+    return (int)cudaErrorInvalidValue;
   const auto run = (dh % 4 == 0 && N % 4 == 0) ? launch<true> : launch<false>;
   return (int)run((const float*)xs, (const float*)bm, (const float*)cm, (const float*)dt,
-                  (const float*)a, (float*)y, (float*)ends, (float*)decays, B, S, H, dh, N, P,
-                  (cudaStream_t)stream);
+                  (const float*)a, (float*)y, (float*)ends, (float*)decays, B, S, H, dh, N, G,
+                  P, (cudaStream_t)stream);
 }

@@ -4,7 +4,8 @@
 Each checks what its kernel takes and raises on anything else: float32 CUDA
 tensors, self-attention (``Sq == Skv``), ``hd`` in ``HEAD_DIMS`` (every
 head dim of the LM zoo's configs: 64, 80, 112, 128, 160, 256; the forward
-also takes 8, the head dim of the demo models at their default width),
+also takes 8, the head dim of the demo models at their default width, and
+224, Zamba2-7B's shared attention),
 ``H`` a multiple of ``KH``, and q, k, v rows whose (heads, hd) block is
 packed and 16-byte aligned (the kernels stage rows by 16-byte ``cp.async``
 copies) -- the batch and sequence strides may be anything else that keeps
@@ -14,7 +15,8 @@ a contiguous (B, H, S) f32 tensor.  Outputs are new contiguous tensors.
 
 ``flash_attention_cuda`` counts its launches in ``launches`` (and those
 with a sliding window also in ``launches_windowed``); with ``lse=True`` it
-also returns each row's logsumexp, the residual of the backward.
+also returns each row's logsumexp, the residual of the backward.  Its
+softmax scale is ``hd**-0.5`` unless the caller gives ``scale``.
 ``flash_attention_bwd_cuda`` counts its launches (one call runs its three
 kernels: D = rowsum(o dO), dK/dV, dQ) in ``launches``, and those with a
 window also in ``launches_windowed``.
@@ -27,8 +29,9 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (64, 80, 112, 128, 160, 256)
-# the forward's: also demo_transformer's default (d=32, 4 heads)
-FWD_HEAD_DIMS = (8, *HEAD_DIMS)
+# the forward's: also demo_transformer's default (d=32, 4 heads) and
+# Zamba2-7B's shared attention
+FWD_HEAD_DIMS = (8, *HEAD_DIMS, 224)
 # the backward's tiles (csrc/flash_attention_bwd.cu, Cfg): rows a block
 # owns (keys in the dK/dV kernel, queries in the dQ kernel) by head dim, and
 # the rows of the tiles each streams past them
@@ -85,8 +88,10 @@ def flash_attention_cuda(
     window: int = 0,
     softcap: float = 0.0,
     lse: bool = False,
+    scale: float | None = None,
 ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
-    """o (B, S, H, hd) f32; with ``lse=True``, (o, lse (B, H, S) f32)."""
+    """o (B, S, H, hd) f32; with ``lse=True``, (o, lse (B, H, S) f32).  The
+    logits are q k^T times ``scale``, ``hd**-0.5`` when it is None."""
     b, s, h, kh, hd = _require_qkv(q, k, v, FWD_HEAD_DIMS)
     o = torch.empty((b, s, h, hd), dtype=torch.float32, device=q.device)
     lse_t = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if lse else None
@@ -95,7 +100,8 @@ def flash_attention_cuda(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse_t is None else lse_t.data_ptr(),
             b, s, h, kh, hd, *_strides(q, k, v),
-            int(bool(causal)), int(window), float(softcap), float(hd**-0.5),
+            int(bool(causal)), int(window), float(softcap),
+            float(hd**-0.5 if scale is None else scale),
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(err, "flash_attention_fwd")
         flash_attention_cuda.launches += 1

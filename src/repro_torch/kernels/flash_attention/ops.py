@@ -60,12 +60,14 @@ Tensor = torch.Tensor
 
 @torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
 def flash_attention_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
-                        softcap: float) -> Tensor:
+                        softcap: float, scale: float | None = None) -> Tensor:
     """o (B, S, H, hd): the forward kernel on CUDA tensors, ``attention_ref``
-    on CPU tensors (in their own dtype)."""
+    on CPU tensors (in their own dtype); logits scaled by ``scale``, or
+    hd^-0.5 when it is None."""
     if on_kernel_path(q, k, v):
-        return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)
-    return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+        return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,
+                                    scale=scale)
+    return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
 
 
 @torch.library.custom_op("repro_torch::flash_attention_fwd_lse", mutates_args=())
@@ -92,7 +94,7 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
 
 
 @flash_attention_fwd.register_fake
-def _(q, k, v, causal, window, softcap):
+def _(q, k, v, causal, window, softcap, scale=None):
     return fake_empty(q, q.shape)
 
 
@@ -107,7 +109,7 @@ def _(q, k, v, o, lse, do, causal, window, softcap):
     return fake_empty(q, q.shape), fake_empty(k, k.shape), fake_empty(v, v.shape)
 
 
-def _fwd_cost(q, k, v, causal, window, softcap, *, lse=False):
+def _fwd_cost(q, k, v, causal, window, softcap, scale=None, *, lse=False):
     b, s, h, hd = q.shape
     return (costs.flash_fwd_flops(b, s, h, hd, causal=causal, window=window),
             costs.flash_fwd_bytes(b, s, h, k.shape[2], hd, lse=lse))
@@ -163,15 +165,21 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Attention over the (B, S, H, hd) layout: GQA (H = G*KH), causal and
-    sliding-``window`` masks, logit ``softcap``, ``hd**-0.5`` scaling;
-    differentiable in q, k and v."""
+    sliding-``window`` masks, logit ``softcap``, logits scaled by ``scale``
+    (``hd**-0.5`` when None); differentiable in q, k and v at the default
+    scale."""
     cuda = on_kernel_path(q, k, v)
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
         if cuda:
-            o = flash_attention_fwd(q.float(), k.float(), v.float(), causal, window, softcap)
+            o = flash_attention_fwd(q.float(), k.float(), v.float(), causal, window, softcap,
+                                    scale)
             return o.to(q.dtype)
-        return flash_attention_fwd(q, k, v, causal, window, softcap)
+        return flash_attention_fwd(q, k, v, causal, window, softcap, scale)
+    if scale is not None:
+        raise ValueError("a given scale is served by the forward only: the backward "
+                         "scales by hd**-0.5")
     o = FlashAttention.apply(q.float(), k.float(), v.float(), causal, window, softcap)
     return o.to(q.dtype)

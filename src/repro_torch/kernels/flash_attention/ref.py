@@ -31,13 +31,13 @@ def _mask(sq: int, skv: int, causal: bool, window: int, device, q_offset: int = 
 
 
 def _logits(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int, softcap: float,
-            q_offset: int = 0) -> torch.Tensor:
-    """(B, KH, G, Sq, Skv) f32: the scaled, capped logits of each query head
-    against its kv head, -inf where masked."""
+            q_offset: int = 0, scale: float | None = None) -> torch.Tensor:
+    """(B, KH, G, Sq, Skv) f32: the scaled (by ``scale``, hd^-0.5 when None),
+    capped logits of each query head against its kv head, -inf where masked."""
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
     ct = _compute_dtype(q)
-    qg = q.reshape(b, sq, kh, h // kh, hd).to(ct) * hd**-0.5
+    qg = q.reshape(b, sq, kh, h // kh, hd).to(ct) * (hd**-0.5 if scale is None else scale)
     logits = torch.einsum("bqhgk,bshk->bhgqs", qg, k.to(ct))
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
@@ -61,8 +61,9 @@ def attention_ref(
     window: int = 0,
     softcap: float = 0.0,
     q_offset: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
-    logits = _logits(q, k, causal, window, softcap, q_offset)
+    logits = _logits(q, k, causal, window, softcap, q_offset, scale)
     return _weighted(torch.softmax(logits, dim=-1), v, q.dtype)
 
 

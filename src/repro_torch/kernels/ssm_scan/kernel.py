@@ -2,14 +2,16 @@
 (``csrc/ssd_scan.cu``) and the backward (``csrc/ssd_scan_bwd.cu``).
 
 Checks what the kernel takes and raises on anything else: contiguous
-float32 CUDA tensors xs (B, S, H, dh), bm and cm (B, S, N), dt (B, S, H),
-a (H,), with dh and N at most 64.  ``chunk`` keeps the JAX package's
-precondition (``q = min(chunk, S)`` must divide S, else ``ValueError``), but
-the kernel tiles at its own ``KERNEL_CHUNK`` rows whatever chunk the caller
+float32 CUDA tensors xs (B, S, H, dh), bm and cm (B, S, N) or, in G groups,
+(B, S, G, N) with H a multiple of G (head h reads group h // (H / G)), dt
+(B, S, H), a (H,), with dh and N at most 64; the backward takes one group.
+``chunk`` keeps the JAX package's precondition (``q = min(chunk, S)`` must
+divide S, else ``ValueError``), but the kernel tiles at its own ``KERNEL_CHUNK`` rows whatever chunk the caller
 asks for: the scan is chunk-invariant, and a Q x Q score tile at the
 demo model's ``chunk=seq`` would not fit a block.  A ragged last chunk is
 masked inside the kernel.  The output is a new (B, S, H, dh) f32 tensor;
-the launch is counted in ``launches``.
+the launch is counted in ``launches``, and one with grouped B and C also
+in ``launches_grouped``.
 
 Each (batch row, head) sequence is cut into ``segments`` segments of whole
 chunks (``ref.segment_starts``), so that short work items fill the card:
@@ -80,15 +82,22 @@ def _require(t: torch.Tensor, name: str, shape: tuple) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _require_scan(xs, bm, cm, dt, a, chunk: int) -> tuple[int, int, int, int, int]:
-    """Check the scan's inputs as both kernels take them; returns (B, S, H, dh, N)."""
-    if xs.dim() != 4 or bm.dim() != 3:
-        raise ValueError(f"xs must be (B, S, H, dh) and bm (B, S, N), got "
+def _require_scan(xs, bm, cm, dt, a, chunk: int, *,
+                  grouped: bool = False) -> tuple[int, int, int, int, int, int]:
+    """Check the scan's inputs as the kernels take them (bm and cm (B, S, G,
+    N) too where ``grouped``); returns (B, S, H, dh, N, G)."""
+    if xs.dim() != 4 or bm.dim() not in ((3, 4) if grouped else (3,)):
+        raise ValueError(f"xs must be (B, S, H, dh) and bm (B, S, N)"
+                         f"{' or (B, S, G, N)' if grouped else ''}, got "
                          f"{tuple(xs.shape)} / {tuple(bm.shape)}")
     b, s, h, dh = xs.shape
     n = bm.shape[-1]
-    for t, name, shape in ((xs, "xs", (b, s, h, dh)), (bm, "bm", (b, s, n)),
-                           (cm, "cm", (b, s, n)), (dt, "dt", (b, s, h)),
+    g = bm.shape[2] if bm.dim() == 4 else 1
+    bc = (b, s, g, n) if bm.dim() == 4 else (b, s, n)
+    if g < 1 or h % g:
+        raise ValueError(f"heads {h} must be a multiple of the B / C groups {g}")
+    for t, name, shape in ((xs, "xs", (b, s, h, dh)), (bm, "bm", bc),
+                           (cm, "cm", bc), (dt, "dt", (b, s, h)),
                            (a, "a", (h,))):
         _require(t, name, shape)
     if s:
@@ -97,20 +106,20 @@ def _require_scan(xs, bm, cm, dt, a, chunk: int) -> tuple[int, int, int, int, in
         raise ValueError(f"kernel takes dh and N in 1..{MAX_WIDTH}, got dh={dh}, N={n}")
     if b > 65535 or h > 65535:
         raise ValueError("kernel grid takes at most 65535 batch rows and heads")
-    return b, s, h, dh, n
+    return b, s, h, dh, n, g
 
 
 def ssd_chunked_cuda(
     xs: torch.Tensor,  # (B, S, H, dh)
-    bm: torch.Tensor,  # (B, S, N)
-    cm: torch.Tensor,  # (B, S, N)
+    bm: torch.Tensor,  # (B, S, N) or (B, S, G, N)
+    cm: torch.Tensor,  # as bm
     dt: torch.Tensor,  # (B, S, H)
     a: torch.Tensor,  # (H,)
     *,
     chunk: int = 128,
     segments: int | None = None,
 ) -> torch.Tensor:
-    b, s, h, dh, n = _require_scan(xs, bm, cm, dt, a, chunk)
+    b, s, h, dh, n, g = _require_scan(xs, bm, cm, dt, a, chunk, grouped=True)
     if segments is not None and segments < 1:
         raise ValueError(f"segments must be at least 1, got {segments}")
     n_chunks = -(-s // KERNEL_CHUNK)
@@ -127,13 +136,16 @@ def ssd_chunked_cuda(
         err = _build.lib().seifer_ssd_scan(
             xs.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(),
             a.data_ptr(), y.data_ptr(), ends.data_ptr(), decays.data_ptr(),
-            b, s, h, dh, n, p, torch.cuda.current_stream(xs.device).cuda_stream)
+            b, s, h, dh, n, g, p, torch.cuda.current_stream(xs.device).cuda_stream)
         _build.check(err, "ssd_scan")
         ssd_chunked_cuda.launches += 1
+        if bm.dim() == 4:
+            ssd_chunked_cuda.launches_grouped += 1
     return y
 
 
 ssd_chunked_cuda.launches = 0
+ssd_chunked_cuda.launches_grouped = 0
 
 
 def ssd_chunked_bwd_cuda(
@@ -147,7 +159,7 @@ def ssd_chunked_bwd_cuda(
     chunk: int = 128,
 ) -> tuple[torch.Tensor, ...]:
     """(dxs, dbm, dcm, ddt, da) of ``ssd_chunked_cuda``'s y, given dy."""
-    b, s, h, dh, n = _require_scan(xs, bm, cm, dt, a, chunk)
+    b, s, h, dh, n, _ = _require_scan(xs, bm, cm, dt, a, chunk)
     _require(dy, "dy", (b, s, h, dh))
     nc = -(-s // KERNEL_CHUNK)
     dev = xs.device

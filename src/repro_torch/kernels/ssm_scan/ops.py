@@ -23,7 +23,9 @@ cheapest chunking, ``kernels/costs.py``) and a sharding rule.  The scan
 shards batch and heads (xs and dt on their head dim, a on its only one);
 B and C stay replicated across heads, and their gradients, summed over the
 heads, come out as partial sums where the heads are sharded (and da where
-the batch is).
+the batch is).  Grouped B and C ((B, S, G, N), Zamba2-7B's mixer) are
+served only, and only unsharded: the rule's head sharding assumes one
+group.
 """
 
 from __future__ import annotations
@@ -109,8 +111,11 @@ class SSDScan(torch.autograd.Function):
 
 def ssd_chunked(xs: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
                 dt: torch.Tensor, a: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
-    """Chunked selective-state scan.  Returns y (B, S, H, dh) f32;
-    differentiable in all five inputs."""
+    """Chunked selective-state scan.  bm and cm are (B, S, N), or (B, S, G,
+    N) in G groups, head h reading group h // (H / G).  Returns y (B, S, H,
+    dh) f32; differentiable in all five inputs with one group."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (xs, bm, cm, dt, a)):
+        if bm.dim() == 4:
+            raise ValueError("the scan with grouped B and C has no backward yet")
         return SSDScan.apply(xs, bm, cm, dt, a, chunk)
     return ssd_chunked_fwd(xs, bm, cm, dt, a, chunk)

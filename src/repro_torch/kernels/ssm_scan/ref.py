@@ -3,8 +3,9 @@
 Inputs are the post-projection tensors of one mamba layer, in the JAX
 package's layout:
   xs  (B, S, H, dh)  state inputs
-  bm  (B, S, N)      input projections B_t
-  cm  (B, S, N)      output projections C_t
+  bm  (B, S, N)      input projections B_t; or (B, S, G, N) in G groups,
+                     head h reading group h // (H / G) (``ssd_ref`` only)
+  cm  (B, S, N)      output projections C_t, as bm
   dt  (B, S, H)      softplus'd step sizes
   a   (H,)           negative decay rates
 
@@ -79,7 +80,17 @@ def chunk_of(s: int, chunk: int) -> int:
 def ssd_ref(xs, bm, cm, dt, a, *, chunk: int = 64, state0=None):
     """-> (y (B, S, H, dh), final state (B, H, dh, N)), f32 (f64 for f64
     inputs: ``chip_smoke.py`` takes that as its exact yardstick).  The
-    state starts at ``state0`` (B, H, dh, N), zero when None."""
+    state starts at ``state0`` (B, H, dh, N), zero when None.  Grouped bm
+    and cm (B, S, G, N): the one-group walk once a group, over its heads."""
+    if bm.dim() == 4:  # each group's heads, walked with that group's B and C
+        g, r = bm.shape[2], xs.shape[2] // bm.shape[2]
+        if xs.shape[2] % g:
+            raise ValueError(f"heads {xs.shape[2]} must be a multiple of the B / C groups {g}")
+        parts = [ssd_ref(xs[:, :, k * r:(k + 1) * r], bm[:, :, k], cm[:, :, k],
+                         dt[:, :, k * r:(k + 1) * r], a[k * r:(k + 1) * r], chunk=chunk,
+                         state0=None if state0 is None else state0[:, k * r:(k + 1) * r])
+                 for k in range(g)]
+        return torch.cat([y for y, _ in parts], 2), torch.cat([st for _, st in parts], 1)
     b, s, h, dh = xs.shape
     n = bm.shape[-1]
     q = chunk_of(s, chunk)

@@ -8,8 +8,11 @@ grad, backward) for CUDA tensors, the plain ``ssd_ref`` (whose in-chunk
 cumsum takes XLA's CPU order) and ``ssd_backward_ref`` on the CPU -- and the
 skip is added after.  All gate math is fp32.
 
-Layout: d_inner = ssm_expand * d_model, heads of size HEAD_DIM, single B/C
-group (n_groups=1), scalar-per-head A (the Mamba2 restriction).
+Layout: d_inner = ssm_expand * d_model, heads of size HEAD_DIM, B and C in
+``n_groups`` groups (the LM zoo's configs: one), scalar-per-head A (the
+Mamba2 restriction).  ``causal_conv``, ``split_xbc`` and ``gated_rmsnorm``
+serve any group count: ``core/model_zoo.zamba2_hybrid`` (Zamba2-7B's
+mixer, two groups) uses them too.
 """
 
 from __future__ import annotations
@@ -23,10 +26,14 @@ HEAD_DIM = 64
 DEFAULT_CHUNK = 256
 
 
-def ssm_dims(cfg) -> tuple[int, int, int]:
-    """(d_inner, n_heads, state N) for the mamba tower of this config."""
+def ssm_dims(cfg, n_groups: int = 1) -> tuple[int, int, int]:
+    """(d_inner, n_heads, state N) for the mamba tower of this config, whose
+    B and C are ``n_groups`` groups of N each, over whole groups of heads."""
     d_in = cfg.ssm_expand * cfg.d_model
-    return d_in, d_in // HEAD_DIM, max(cfg.ssm_state, 16)
+    h = d_in // HEAD_DIM
+    if n_groups < 1 or h % n_groups:
+        raise ValueError(f"{h} heads do not split into {n_groups} B / C groups")
+    return d_in, h, max(cfg.ssm_state, 16)
 
 
 def init_mamba(cfg, gen: torch.Generator, *, lead: tuple[int, ...] = (), device="cpu") -> dict:
@@ -46,7 +53,7 @@ def init_mamba(cfg, gen: torch.Generator, *, lead: tuple[int, ...] = (), device=
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv.  x: (B, S, C); w: (K, C).  Sum of shifts."""
     k = w.shape[0]
     s = x.shape[1]
@@ -70,11 +77,36 @@ def _split_proj(cfg, p: dict, x: torch.Tensor):
     return z, xbc, dt
 
 
-def _gate_out(cfg, p: dict, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """Gated RMSNorm then down-projection.  y, z: (B, S, d_in)."""
+def split_xbc(xbc: torch.Tensor, d_in: int, n: int, n_groups: int = 1):
+    """The conv's output (B, S, d_in + 2 G N) -> x (B, S, d_in) as a view,
+    and B and C in f32, contiguous: (B, S, N) for one group, else (B, S, G,
+    N), as ``ssd_chunked`` takes them."""
+    gn = n_groups * n
+    bm = xbc[..., d_in:d_in + gn].float()
+    cm = xbc[..., d_in + gn:d_in + 2 * gn].float()
+    if n_groups > 1:
+        bm, cm = bm.unflatten(-1, (n_groups, n)), cm.unflatten(-1, (n_groups, n))
+    return xbc[..., :d_in], bm.contiguous(), cm.contiguous()
+
+
+def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, *, n_groups: int = 1,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm of y silu(z) over each of ``n_groups`` equal slices of the last
+    dim, times w, in f32.  y, z: (..., d_in)."""
     g = y.float() * silu(z.float())
+    if n_groups > 1:
+        g = g.unflatten(-1, (n_groups, -1))
     var = (g * g).mean(-1, keepdim=True)
-    g = g * torch.rsqrt(var + 1e-6) * p["norm_w"].float()
+    g = g * torch.rsqrt(var + eps)
+    if n_groups > 1:
+        g = g.flatten(-2)
+    return g * w.float()
+
+
+def _gate_out(cfg, p: dict, y: torch.Tensor, z: torch.Tensor, n_groups: int = 1) -> torch.Tensor:
+    """Gated RMSNorm (taken per group of the d_in / n_groups channels that
+    each B / C group feeds) then down-projection.  y, z: (B, S, d_in)."""
+    g = gated_rmsnorm(y, z, p["norm_w"], n_groups=n_groups)
     return (g.to(z.dtype) @ p["out_proj"]).to(z.dtype)
 
 
@@ -83,10 +115,9 @@ def mamba_forward(cfg, p: dict, x: torch.Tensor, *, chunk: int = DEFAULT_CHUNK) 
     b, s, _ = x.shape
     d_in, h, n = ssm_dims(cfg)
     z, xbc, dt = _split_proj(cfg, p, x)
-    xbc = silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
-    xs = xbc[..., :d_in].reshape(b, s, h, HEAD_DIM)
-    bm = xbc[..., d_in:d_in + n].float().contiguous()  # (B,S,N)
-    cm = xbc[..., d_in + n:].float().contiguous()
+    xbc = silu(causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    x, bm, cm = split_xbc(xbc, d_in, n)  # bm, cm (B,S,N)
+    xs = x.reshape(b, s, h, HEAD_DIM)
     # (H,); widened exactly, as the JAX package's dt * a promotes a bf16 a
     a = (-torch.exp(p["A_log"])).float()
     xs32 = xs.float().contiguous()

@@ -1277,3 +1277,129 @@ def test_serve_cli_on_the_card_prints_the_cpu_lines(cuda, capsys):
     assert "served 16/16 requests (lost 0)" in got and "killing node" in got
     for name in ("quantize_int8_cuda", "dequant_matmul_cuda", "flash_attention_cuda"):
         assert counts[name] > 0, counts
+
+
+# Zamba2-7B's layers (core/model_zoo.zamba2_hybrid, the benchmark's
+# zamba2-edge-closed): the scan with B and C in groups, flash at hd 224 with
+# the caller's scale
+
+
+def _ssd_grouped_case(cuda, b, s, h, dh, n, g, seed):
+    xs, _, _, dt, a = _ssd_case(cuda, b, s, h, dh, n, seed)
+    bm = _randn((b, s, g, n), seed + 5, cuda, 0.5)
+    cm = _randn((b, s, g, n), seed + 6, cuda, 0.5)
+    return xs, bm, cm, dt, a
+
+
+@pytest.mark.parametrize("b,s,h,dh,n,g", [
+    (2, 256, 4, 64, 32, 2), (1, 200, 6, 20, 12, 3), (2, 130, 8, 64, 64, 4),
+    (4, 4096, 112, 64, 64, 2),  # the cell's: 112 heads of 64, state 64, 2 groups
+])
+def test_ssd_grouped_matches_plain(cuda, b, s, h, dh, n, g):
+    """Grouped B and C against the plain version decomposed as the kernel
+    decomposes it, at the pin of the one-group kernel (1e-5 of max|plain|)."""
+    from repro_torch.kernels import launch_counts
+
+    args = _ssd_grouped_case(cuda, b, s, h, dh, n, g, 50)
+    before = launch_counts()["ssd_chunked_cuda_grouped"]
+    out = ssd_chunked_cuda(*args, chunk=s)
+    assert launch_counts()["ssd_chunked_cuda_grouped"] == before + 1
+    p = min(default_segments(b, s, h, out.device), -(-s // KERNEL_CHUNK))
+    same = ssd_ref_segmented(*args, chunk=KERNEL_CHUNK, segments=p)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert _ssd_rel(out, same) <= 1e-5
+
+
+@pytest.mark.parametrize("b,s,h,dh,n,g,p", [
+    (2, 256, 4, 64, 32, 2, 2), (1, 448, 6, 22, 37, 3, 3), (4, 4096, 112, 64, 64, 2, 4),
+])
+def test_ssd_grouped_is_the_one_group_kernel_per_group(cuda, b, s, h, dh, n, g, p):
+    """At the same segments, each group's heads come out bit for bit as the
+    one-group kernel gives them from that group's B and C alone."""
+    xs, bm, cm, dt, a = _ssd_grouped_case(cuda, b, s, h, dh, n, g, 60)
+    out = ssd_chunked_cuda(xs, bm, cm, dt, a, chunk=s, segments=p)
+    r = h // g
+    for q in range(g):
+        hs = slice(q * r, (q + 1) * r)
+        one = ssd_chunked_cuda(xs[:, :, hs].contiguous(), bm[:, :, q].contiguous(),
+                               cm[:, :, q].contiguous(), dt[:, :, hs].contiguous(),
+                               a[hs].contiguous(), chunk=s, segments=p)
+        torch.cuda.synchronize()
+        assert torch.equal(out[:, :, hs], one), q
+
+
+def test_ssd_grouped_wrapper_refuses(cuda):
+    xs, bm, cm, dt, a = _ssd_grouped_case(cuda, 1, 64, 6, 64, 16, 3, 70)
+    with pytest.raises(ValueError, match="groups"):
+        ssd_chunked_cuda(xs, bm[:, :, :2].contiguous().repeat(1, 1, 2, 1),
+                         cm[:, :, :2].contiguous().repeat(1, 1, 2, 1), dt, a, chunk=64)  # 6 % 4
+    with pytest.raises(ValueError, match="cm"):
+        ssd_chunked_cuda(xs, bm, cm[:, :, :1].contiguous(), dt, a, chunk=64)
+    with pytest.raises(ValueError, match="bm"):  # the backward takes one group
+        ssd_chunked_bwd_cuda(xs, bm, cm, dt, a, torch.ones_like(xs), chunk=64)
+
+
+@pytest.mark.parametrize("s,g,causal", [(128, 1, True), (100, 2, True), (300, 1, False),
+                                        (65, 4, True)])
+def test_flash_hd_224_at_a_given_scale(cuda, s, g, causal):
+    """hd 224 at Zamba2's scale, (hd / 2)^-0.5, against the plain version at
+    the f32 pin; with no scale given the kernel scales by hd^-0.5."""
+    q, k, v = _flash_case(cuda, 2, s, 2 * g, 2, 224, 80)
+    scale = 112 ** -0.5
+    out = flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+    ref = attention_ref(q, k, v, causal=causal, scale=scale)
+    plain = flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 2e-5
+    assert torch.equal(plain, flash_attention_cuda(q, k, v, causal=causal, scale=224 ** -0.5))
+    assert (plain - attention_ref(q, k, v, causal=causal)).abs().max().item() <= 2e-5
+
+
+def test_flash_hd_224_main_path_shape(cuda):
+    """The cell's shared attention: B=4, S=4096, 32 heads of 224, causal,
+    q and k rotated (their own tensors), v a slice of the fused projection;
+    the plain version four heads at a time."""
+    b, s, h, hd = 4, 4096, 32, 224
+    qkv = _randn((b, s, 3, h, hd), 81, cuda)
+    q, k, v = qkv[:, :, 0].contiguous(), qkv[:, :, 1].contiguous(), qkv[:, :, 2]
+    scale = (hd / 2) ** -0.5
+    out = flash_attention_cuda(q, k, v, causal=True, scale=scale)
+    worst = 0.0
+    for j in (0, 12, 28):
+        hs = slice(j, j + 4)
+        ref = attention_ref(q[:, :, hs], k[:, :, hs], v[:, :, hs].contiguous(), causal=True,
+                            scale=scale)
+        worst = max(worst, (out[:, :, hs] - ref).abs().max().item())
+    assert worst <= 2e-5
+
+
+
+def test_zamba2_hybrid_card_matches_cpu(cuda):
+    """zamba2_hybrid at small widths (heads of 64, state 64, 2 groups, two
+    shared blocks at hd 224) on the card's kernels against its plain path on
+    the CPU, the same weights: every product, scan and attention at its f32
+    pin, so the stack within 1e-4 of max|cpu|; the grouped scan launched
+    once a layer and flash once a hybrid layer."""
+    from repro_torch.core.model_zoo import zamba2_hybrid
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    widths = dict(d=256, d_in=512, mamba_heads=8, groups=2, state=64, conv=4, attn_heads=2,
+                  attn_head_dim=224, ffn=1024, adapter_rank=8,
+                  layer_types=("hybrid", "mamba", "hybrid"), seq=256, hybrid_offset=1)
+    _, ex_cpu = zamba2_hybrid(**widths, device="cpu")
+    cpu = ex_cpu(3)
+    x = torch.randn((2, 256, 512), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        want = cpu(0, 3, x)
+    host = {k: t.numpy() for k, t in cpu.params.items()}
+    _, ex_card = zamba2_hybrid(**widths, device="cuda", params_for_version=lambda v: host)
+    card = ex_card(3)
+    reset_launch_counts()
+    with torch.no_grad():
+        got = card(0, 3, x.to(cuda))
+    counts = launch_counts()
+    torch.cuda.synchronize()
+    assert counts["ssd_chunked_cuda_grouped"] == 3 and counts["flash_attention_cuda"] == 2
+    top = want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= 1e-4 * top
