@@ -41,7 +41,14 @@ the first fault:
    tokens, then one with the launch counters reset, whose grouped scans,
    flash, f32 GEMMs, quantize and dequantize are counted (phase 10's Zamba2
    rows print these counts).  ``python3 chip_smoke.py --zamba2`` runs the
-   build, this phase and its two rows of phase 10 alone.
+   build, this phase and its two rows of phase 10 alone.  Flash runs at hd
+   224 there, never on the wgmma kernel (``flash_attention_cuda_wgmma`` 0).
+6c. serve phi-2's widths as the benchmark's attn-edge-closed deploys them
+   (demo_transformer at ``seifer_bench/configs/phi2-edge.json``'s widths,
+   cluster and codec) the same way: one microbatch launches flash once a
+   layer, each launch on the wgmma kernel (hd 80).  ``python3 chip_smoke.py
+   --flash`` runs the build, phases 6c and 6b and phase 10's flash rows
+   alone.
 7. serve two tenants on one cluster, ``deploy([TenantSpec("ssm", ...),
    TenantSpec("transformer", ...)])`` (phase 6's demo_ssm, and phase 4's
    demo_transformer cut to 2 layers), int8 hops in both; a ``NodeFailed``
@@ -90,12 +97,15 @@ the first fault:
 10. times -- each kernel (CUDA events, after warm-up, mean over launches)
    beside its bound, its plain version's time and yardsticks the port never
    calls: for flash attention (global and windowed layers, each a row, at
-   demo_transformer's shape, at gemma2-27b's B=2 and at zamba2-2.7b's hd 80) the
+   demo_transformer's shape, at gemma2-27b's B=2, at zamba2-2.7b's hd 80 and
+   at the phi-2 cells' own call, strided q|k|v slices at hd 80) the
    one PyTorch call that computes it (``library_ms``): FlexAttention under
    ``torch.compile`` with the softcap as ``score_mod`` and the masks as a
    ``block_mask`` on rows with a softcap or window, else
    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
-   (zamba2-2.7b's row); for dequant_matmul the dequantize kernel followed by
+   (the hd 80 rows), each flash row with the wgmma route's pre-pass time
+   apart (``prepass_ms``, ``main_ms``, by ``torch.profiler``) and the SM
+   clock's median over its timed launches (``sm_clock_mhz``); for dequant_matmul the dequantize kernel followed by
    ``torch.matmul`` (``unfused_ms``, interleaved best-of with the fused
    kernel, and their ratio).  A yardstick that fails prints as such and
    gives null.  The bound is the larger of bytes / 3.35 TB/s and FLOPs at
@@ -3933,71 +3943,7 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     del x, w
     torch.cuda.empty_cache()
 
-    def flash_rows(fq, fk, fv, variants):
-        """A row of each (name, window, softcap, label) variant over q, k, v."""
-        b, s, h, hd = fq.shape
-        kvh = fk.shape[2]
-        g = h // kvh
-        io_bytes = costs.flash_fwd_bytes(b, s, h, kvh, hd)  # q, o, k, v read/written once
-        for name, window, softcap, label in variants:
-            def plain(window=window, softcap=softcap):
-                for j in range(kvh):
-                    attention_ref(fq[:, :, j * g:(j + 1) * g], fk[:, :, j:j + 1],
-                                  fv[:, :, j:j + 1], causal=True, window=window, softcap=softcap)
-
-            kernel = lambda w=window, c=softcap: flash_attention_cuda(  # noqa: E731
-                fq, fk, fv, causal=True, window=w, softcap=c)
-
-            library, lib = None, None
-            # the one call that takes a softcap or window is FlexAttention;
-            # without either, scaled_dot_product_attention computes the same
-            lib_name = ("FlexAttention" if window > 0 or softcap != 0
-                        else "scaled_dot_product_attention")
-            t0 = time.perf_counter()
-            try:  # a yardstick only: its failure is reported, never timed
-                lib = (flex_attention_yardstick(fq, fk, fv, window, softcap)
-                       if lib_name == "FlexAttention" else sdpa_yardstick(fq, fk, fv))
-                lib_out = lib().transpose(1, 2)
-                torch.cuda.synchronize()
-            except Exception as e:  # noqa: BLE001
-                lib = None
-                say("times", f"{name}: {lib_name} yardstick FAILED ({type(e).__name__}: "
-                             f"{str(e)[:300]}); library_ms null")
-            if lib is not None:
-                diff = (lib_out - kernel()).abs().max().item()
-                library = cuda_time_ms(lib, 3)
-                say("times", f"{name}: {lib_name} ran in {time.perf_counter() - t0:.1f} s, "
-                             f"max-abs {diff:.3g} from the kernel, {library:.4f} ms")
-                del lib, lib_out
-                torch.cuda.empty_cache()
-            row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
-                "src/repro/kernels/flash_attention/kernel.py:96", kernel, plain, 3,
-                io_bytes, costs.flash_fwd_flops(b, s, h, hd, window=window),
-                F32_PRODUCT_S_PER_FLOP,
-                (b, s, h, kvh, hd, label), library=library)
-
-    qkv = randn((n, s, proj), 14)  # demo_transformer's: slices of the fused projection
-    softcap = SERVED["softcap"]
-    flash_rows(qkv[..., : heads * hd].reshape(n, s, heads, hd),
-               qkv[..., heads * hd: (heads + kvh) * hd].reshape(n, s, kvh, hd),
-               qkv[..., (heads + kvh) * hd:].reshape(n, s, kvh, hd),
-               (("flash_attention_fwd", 0, softcap, "global causal, softcap"),
-                ("flash_attention_fwd_window", SERVED["window"], softcap,
-                 f"causal, window {SERVED['window']}, softcap")))
-    del qkv
-    torch.cuda.empty_cache()
-    # the LM zoo's (phase 8b): gemma2-27b's layers at B=2 and zamba2-2.7b's
-    # shared attention at hd 80, each q, k, v its own tensor
-    for b, h, kvh, hd, variants in (
-            (2, 32, 16, 128, (("flash_attention_fwd_gemma2", 0, 50.0, "gemma2-27b global"),
-                              ("flash_attention_fwd_window_gemma2", 4096, 50.0,
-                               "gemma2-27b window 4096"))),
-            (4, 32, 32, 80, (("flash_attention_fwd_hd80_zamba2", 0, 0.0,
-                              "zamba2-2.7b shared attention, causal"),))):
-        flash_rows(randn((b, s, h, hd), 15), randn((b, s, kvh, hd), 16),
-                   randn((b, s, kvh, hd), 17), variants)
-        torch.cuda.empty_cache()
-
+    rows += flash_times(card, launches, errors)
     h, dh, ns, sq = SSM["heads"], SSM["d"] // SSM["heads"], SSM["state"], SSM["seq"]
     args = ssd_case(n, sq, h, dh, ns, 21)
     q = KERNEL_CHUNK
@@ -4029,6 +3975,229 @@ def phase_times(card: str, launches: dict, errors: dict) -> list[dict]:
     say("times", f"ssd_chunked unsegmented (P=1, {n * h} blocks) vs P={p}, interleaved best "
                  f"of 3: {by_p[0]:.4f} / {by_p[1]:.4f} ms; {card}")
     return rows
+
+
+def sm_clock_median(fn) -> tuple[float, float]:
+    """(what ``fn`` returns, the median of the card's SM clock in MHz while
+    it ran), ``nvidia-smi`` read every 50 ms beside it."""
+    import statistics
+
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                            "-lms", "50", "-i", "0"], stdout=subprocess.PIPE, text=True)
+    try:
+        out = fn()
+    finally:
+        smi.terminate()
+        lines = smi.communicate()[0].split()
+    mhz = [float(x) for x in lines if x.replace(".", "", 1).isdigit()]
+    return out, statistics.median(mhz) if mhz else math.nan
+
+
+def flash_split_ms(fn) -> tuple[float, float]:
+    """(pre-pass ms, main kernel ms) of one call of the flash forward, each
+    kernel's mean device time a launch under ``torch.profiler``: the wgmma
+    route's ``flash_fwd_kernel_planes`` apart (0 on the mma.sync route) from
+    its ``flash_fwd_kernel`` launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    pre = main_ = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and "flash_fwd_kernel" in e.key:
+            ms = e.self_device_time_total / e.count / 1e3
+            if "flash_fwd_kernel_planes" in e.key:
+                pre += ms
+            else:
+                main_ += ms
+    return pre, main_
+
+
+def flash_times(card: str, launches: dict, errors: dict) -> list[dict]:
+    """Phase 10's flash forward rows: demo_transformer's global and windowed
+    layers, gemma2-27b's at B=2, zamba2-2.7b's shared attention at hd 80, and
+    the phi-2 cells' own call (strided q|k|v slices of the fused projection,
+    B=4, S=8192, 32/32 heads of 80, causal).  Each against its plain version
+    (one kv-head group at a time) and its library call, with the pre-pass's
+    time apart from the main kernel's on the wgmma route (hd 64 to 128) and
+    the SM clock's median over the timed launches.  ``launches``/``errors``:
+    the other phases' counts and errors by row name, where they ran; a row
+    they lack gives null launches and its own error against the plain
+    version."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS, flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    rows = []
+
+    def flash_rows(fq, fk, fv, variants):
+        """A row of each (name, window, softcap, label) variant over q, k, v."""
+        b, s, h, hd = fq.shape
+        kvh = fk.shape[2]
+        g = h // kvh
+        io_bytes = costs.flash_fwd_bytes(b, s, h, kvh, hd)  # q, o, k, v read/written once
+        for name, window, softcap, label in variants:
+            def plain(window=window, softcap=softcap, out=None):
+                err = 0.0
+                for j in range(kvh):
+                    ref = attention_ref(fq[:, :, j * g:(j + 1) * g], fk[:, :, j:j + 1],
+                                        fv[:, :, j:j + 1], causal=True, window=window,
+                                        softcap=softcap)
+                    if out is not None:
+                        err = max(err, (out[:, :, j * g:(j + 1) * g] - ref).abs().max().item())
+                return err
+
+            kernel = lambda w=window, c=softcap: flash_attention_cuda(  # noqa: E731
+                fq, fk, fv, causal=True, window=w, softcap=c)
+
+            library, lib = None, None
+            # the one call that takes a softcap or window is FlexAttention;
+            # without either, scaled_dot_product_attention computes the same
+            lib_name = ("FlexAttention" if window > 0 or softcap != 0
+                        else "scaled_dot_product_attention")
+            t0 = time.perf_counter()
+            try:  # a yardstick only: its failure is reported, never timed
+                lib = (flex_attention_yardstick(fq, fk, fv, window, softcap)
+                       if lib_name == "FlexAttention" else sdpa_yardstick(fq, fk, fv))
+                lib_out = lib().transpose(1, 2)
+                torch.cuda.synchronize()
+            except Exception as e:  # noqa: BLE001
+                lib = None
+                say("times", f"{name}: {lib_name} yardstick FAILED ({type(e).__name__}: "
+                             f"{str(e)[:300]}); library_ms null")
+            if lib is not None:
+                diff = (lib_out - kernel()).abs().max().item()
+                library = cuda_time_ms(lib, 3)
+                say("times", f"{name}: {lib_name} ran in {time.perf_counter() - t0:.1f} s, "
+                             f"max-abs {diff:.3g} from the kernel, {library:.4f} ms")
+                del lib, lib_out
+                torch.cuda.empty_cache()
+            err = errors.get(name)
+            if err is None:
+                err = plain(out=kernel())
+                if not err <= TOL_FLASH:
+                    fail(f"{name}: max-abs {err:.3g} from the plain version (pin {TOL_FLASH})")
+            ms, mhz = sm_clock_median(lambda: cuda_time_ms(kernel, 3))
+            pre_ms, main_ms = flash_split_ms(kernel)
+            plain_ms = cuda_time_ms(plain, 1)
+            b_ms, b_by, fma_ms = bound_ms(io_bytes, costs.flash_fwd_flops(b, s, h, hd, window=window),
+                                          F32_PRODUCT_S_PER_FLOP)
+            rows.append({"name": name, "route": "cuda", "source": (
+                "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu" if hd in WGMMA_HEAD_DIMS
+                else "src/repro_torch/kernels/csrc/flash_attention.cu"),
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:96",
+                "launches": launches.get(name), "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": library, "prepass_ms": pre_ms, "main_ms": main_ms,
+                "sm_clock_mhz": mhz})
+            lib = "none" if library is None else f"{library:.4f} ms"
+            say("times", f"{name} {(b, s, h, kvh, hd, label)}: {ms:.4f} ms (profiled: pre-pass "
+                         f"{pre_ms:.4f} ms, main kernel {main_ms:.4f} ms), bound {b_ms:.4f} ms "
+                         f"({b_by}, {b_ms / ms:.1%} of it; f32 FMA bound {fma_ms:.4f} ms), plain "
+                         f"{plain_ms:.4f} ms, library {lib}; max-abs {err:.3g}; SM clock median "
+                         f"{mhz:.0f} MHz; {card}")
+
+    d, s, n = SERVED["d"], SERVED["seq"], MICROBATCH
+    heads, kvh = SERVED["heads"], SERVED["kv_heads"]
+    hd = d // heads
+    proj = (heads + 2 * kvh) * hd
+    qkv = randn((n, s, proj), 14)  # demo_transformer's: slices of the fused projection
+    softcap = SERVED["softcap"]
+    flash_rows(qkv[..., : heads * hd].reshape(n, s, heads, hd),
+               qkv[..., heads * hd: (heads + kvh) * hd].reshape(n, s, kvh, hd),
+               qkv[..., (heads + kvh) * hd:].reshape(n, s, kvh, hd),
+               (("flash_attention_fwd", 0, softcap, "global causal, softcap"),
+                ("flash_attention_fwd_window", SERVED["window"], softcap,
+                 f"causal, window {SERVED['window']}, softcap")))
+    del qkv
+    torch.cuda.empty_cache()
+    # the LM zoo's (phase 8b): gemma2-27b's layers at B=2 and zamba2-2.7b's
+    # shared attention at hd 80, each q, k, v its own tensor
+    for b, h, kvh, hd, variants in (
+            (2, 32, 16, 128, (("flash_attention_fwd_gemma2", 0, 50.0, "gemma2-27b global"),
+                              ("flash_attention_fwd_window_gemma2", 4096, 50.0,
+                               "gemma2-27b window 4096"))),
+            (4, 32, 32, 80, (("flash_attention_fwd_hd80_zamba2", 0, 0.0,
+                              "zamba2-2.7b shared attention, causal"),))):
+        flash_rows(randn((b, s, h, hd), 15), randn((b, s, kvh, hd), 16),
+                   randn((b, s, kvh, hd), 17), variants)
+        torch.cuda.empty_cache()
+    # the phi-2 cells' call: q, k, v slices of demo_transformer's q|k|v
+    # product at phi-2's widths (rows of 3 x 2560 floats)
+    m = json.loads(PHI2_CONFIG.read_text())["model"]
+    h, hd = m["heads"], m["d"] // m["heads"]
+    qkv = randn((n, m["seq"], 3 * h * hd), 18)
+    flash_rows(qkv[..., : h * hd].reshape(n, m["seq"], h, hd),
+               qkv[..., h * hd: 2 * h * hd].reshape(n, m["seq"], h, hd),
+               qkv[..., 2 * h * hd:].reshape(n, m["seq"], h, hd),
+               (("flash_attention_fwd_hd80_phi2", 0, 0.0,
+                 "phi-2 cells, q|k|v slices, causal"),))
+    del qkv
+    torch.cuda.empty_cache()
+    return rows
+
+
+# the benchmark's phi-2 cells (attn-edge-closed's deployment)
+PHI2_CONFIG = ROOT / "seifer_bench" / "configs" / "phi2-edge.json"
+FLASH_FLAG = "--flash"  # phase 6c and phase 10's flash rows alone
+
+
+def phase_serve_phi2(card: str) -> dict:
+    """Phase 6c: the benchmark's attn-edge-closed deployment (phi-2's
+    widths through demo_transformer, its cluster and codec) through
+    ``deploy``, one warm-up microbatch of 4 x 8192 tokens, then one more
+    with the launch counters reset: every result a finite CUDA tensor, and
+    flash launched once a layer, every launch on the wgmma kernel (hd 80)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import ClusterSpec, DeploymentSpec, deploy
+    from repro_torch.core.model_zoo import demo_transformer
+    from repro_torch.core.placement import CommGraph
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = json.loads(PHI2_CONFIG.read_text())
+    m, dep = cfg["model"], cfg["deployment"]
+    graph, ex = demo_transformer(**{k: v for k, v in m.items() if k != "kind"}, device="cuda")
+    comm = CommGraph(bw=np.asarray(dep["cluster"]["bw"], float),
+                     node_capacity=np.asarray(dep["cluster"]["capacity"], float))
+    d = deploy(DeploymentSpec(
+        model=graph, executor_for_version=ex, cluster=ClusterSpec(comm=comm),
+        codec=dep["codec"], serving=dep["serving"], queue_depth=dep["queue_depth"],
+        microbatch=dep["microbatch"], seed=dep["seed"], device="cuda"))
+    shape = (m["seq"], m["d"])
+    for round_ in range(2):
+        if round_:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            mb0 = d.loop.metrics()["microbatches"]
+        reqs = [d.submit(randn(shape, 950 + 10 * round_ + i)) for i in range(MICROBATCH)]
+        done = d.drain()
+        torch.cuda.synchronize()
+        if len(done) != MICROBATCH:
+            fail(f"phi-2 demo_transformer: {len(done)} of {MICROBATCH} requests completed")
+    counts = launch_counts()
+    microbatches = d.loop.metrics()["microbatches"] - mb0
+    check_served(reqs, shape, "phi-2 demo_transformer")
+    per = {k: counts[k] / max(1, microbatches) for k in
+           ("flash_attention_cuda", "flash_attention_cuda_wgmma", "matmul_f32_cuda",
+            "dequant_matmul_cuda", "quantize_int8_cuda")}
+    say("serve", f"demo_transformer at phi-2's widths (attn-edge-closed), stages "
+                 f"{[[p.partition.start, p.partition.stop] for p in d.control.pipeline.pods]}; "
+                 f"{microbatches} microbatch, launches a microbatch {per}; {card}")
+    if microbatches != 1 or not (per["flash_attention_cuda"] == per["flash_attention_cuda_wgmma"]
+                                 == m["n_layers"]):
+        fail(f"phi-2's microbatch did not launch flash once a layer, each on the wgmma "
+             f"kernel: {per}")
+    del d, reqs, done
+    torch.cuda.empty_cache()
+    return per
 
 
 # Zamba2-7B's layers as the benchmark's zamba2-edge-closed serves them
@@ -4086,6 +4255,7 @@ def phase_serve_zamba2(card: str) -> dict:
     microbatches = d.loop.metrics()["microbatches"] - mb0
     check_served(reqs, shape, "zamba2_hybrid")
     per = {k: counts[k] / max(1, microbatches) for k in ZAMBA2_COUNTED}
+    per["flash_attention_cuda_wgmma"] = counts["flash_attention_cuda_wgmma"] / max(1, microbatches)
     say("serve", f"zamba2_hybrid (zamba2-edge-closed) deployed in {time.perf_counter() - t0:.1f} "
                  f"s, stages {stages}, {graph.total_param_bytes / 1e9:.2f} GB of layer weights; "
                  f"{microbatches} microbatch, launches a microbatch {per}; {card}")
@@ -4093,6 +4263,8 @@ def phase_serve_zamba2(card: str) -> dict:
             per[k] for k in ZAMBA2_COUNTED if k != "ssd_chunked_cuda"):
         fail(f"zamba2_hybrid's microbatch did not launch the grouped scan, flash, the GEMM "
              f"and the codec: {per}")
+    if per["flash_attention_cuda_wgmma"]:  # hd 224 stays on the mma.sync kernel
+        fail(f"zamba2_hybrid's flash at hd 224 went to the wgmma kernel: {per}")
     del d, reqs, done
     torch.cuda.empty_cache()
     return per
@@ -4312,6 +4484,19 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if FLASH_FLAG in sys.argv[1:]:  # phases 6c, 6b and the flash rows of phase 10 alone
+        phase_build()
+        per = {"attn-edge-closed": phase_serve_phi2(card),
+               "zamba2-edge-closed": phase_serve_zamba2(card)}
+        rows = flash_times(card, {"flash_attention_fwd_hd80_phi2": per["attn-edge-closed"][
+            "flash_attention_cuda"]}, {})
+        say("done", f"chip_smoke.py {FLASH_FLAG} ran in {time.perf_counter() - start:.0f} s")
+        print(json.dumps({"kernels": rows, "launches_a_microbatch": per}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     phase_build()
     errors = phase_parity()
     errors["ssd_chunked"] = phase_parity_ssd()
@@ -4319,6 +4504,7 @@ def main() -> None:
     phase_serve_mlp()
     counts_ssm, per_request_ssm = phase_serve_ssm()
     counts_zamba2 = phase_serve_zamba2(card)
+    counts_phi2 = phase_serve_phi2(card)
     phase_serve_tenants()
     phase_reference()
     served_lm = phase_lm(card)
@@ -4343,6 +4529,7 @@ def main() -> None:
         "flash_attention_fwd_gemma2": gemma["launches"][0] - gemma["launches"][1],
         "flash_attention_fwd_window_gemma2": gemma["launches"][1],
         "flash_attention_fwd_hd80_zamba2": zamba["launches"][0],
+        "flash_attention_fwd_hd80_phi2": counts_phi2["flash_attention_cuda"],
     }
     rows = phase_times(card, launches, errors)
     rows += gemm_f32_times(card, counts_tf["matmul_f32_cuda"])

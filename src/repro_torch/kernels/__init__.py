@@ -36,6 +36,7 @@ def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
     flash_attention_cuda.launches_windowed = 0
+    flash_attention_cuda.launches_wgmma = 0
     flash_attention_bwd_cuda.launches_windowed = 0
     ssd_chunked_cuda.launches_grouped = 0
 
@@ -43,10 +44,13 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict[str, int]:
     """Launches of each wrapper, and of flash attention (forward and
     backward) with a sliding window apart (``flash_attention_cuda_windowed``,
-    ``flash_attention_bwd_cuda_windowed``) and the SSD scan with grouped B
-    and C (``ssd_chunked_cuda_grouped``), each also in its total."""
+    ``flash_attention_bwd_cuda_windowed``), the forward on its ``wgmma``
+    kernel (``flash_attention_cuda_wgmma``: hd 64 to 128) and the SSD scan
+    with grouped B and C (``ssd_chunked_cuda_grouped``), each also in its
+    total."""
     counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
     counts["flash_attention_cuda_windowed"] = flash_attention_cuda.launches_windowed
+    counts["flash_attention_cuda_wgmma"] = flash_attention_cuda.launches_wgmma
     counts["flash_attention_bwd_cuda_windowed"] = flash_attention_bwd_cuda.launches_windowed
     counts["ssd_chunked_cuda_grouped"] = ssd_chunked_cuda.launches_grouped
     return counts

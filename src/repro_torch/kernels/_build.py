@@ -35,7 +35,7 @@ SIGNATURES = {
     "seifer_dequantize_int8": [_P, _P, _P, _I, _L, _I, _I, _I, _P],
     "seifer_dequant_matmul": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     "seifer_flash_attention_fwd": [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _L, _L, _L, _L, _L, _L, _I, _I, _F, _F, _P,
     ],
     "seifer_flash_attention_bwd": [

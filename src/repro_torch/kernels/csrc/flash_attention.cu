@@ -14,11 +14,13 @@
 // plain version) rules out one TF32 pass (~9e-4 at softcap 50); split-TF32
 // holds it at three tensor-core passes per product, so the least time is
 // FLOPs * 3 / 495 TFLOP/s.  Route: mma.sync.m16n8k8 in FlashAttention-2
-// form (wgmma would want V transposed in shared memory; later work).
+// form.
 //
-// Head dims: 64, 80, 112, 128, 160 and 256 (every one the LM zoo's configs
-// use) and 224 (Zamba2-7B's shared attention), each a multiple of 16.  The
-// caller gives the softmax scale: hd^-0.5 for every model but Zamba2, whose
+// Head dims here: 160 and 256 (pixtral, gemma's largest), 224 (Zamba2-7B's
+// shared attention) and 8 (the demo models at their default width).  The
+// entry below sends 64, 80, 112 and 128 to the TF32 wgmma kernel of
+// flash_attention_wgmma.cu, whose tiles do not fit above 128.  The caller
+// gives the softmax scale: hd^-0.5 for every model but Zamba2, whose
 // attention scales by (hd / 2)^-0.5.
 //
 // One block of 4 warps owns 128 queries of one head (64 at hd > 128); each
@@ -30,8 +32,7 @@
 // P V runs.  Q is pre-scaled once into shared memory; Q, K, V and P are
 // split into hi + lo in registers as their fragments are read.  Row strides
 // pad Q and K to hd + 8 floats and V to hd + 4, so every fragment read is
-// free of bank conflicts; at hd 128 a block takes 104 KB of shared memory
-// and 255 registers a thread (about 350 bytes spilled), two blocks per SM.
+// free of bank conflicts.
 // Every product sums at most 12 mma steps on the tensor cores before its
 // fragment is added, in f32 on the FMA units, to S (per 32-wide slice of
 // hd) or to O (per kv tile).  Tiles the causal or window mask leaves fully
@@ -67,9 +68,8 @@ constexpr float NEG_INF = -1e30f;
 constexpr int BK = 32;  // keys per kv tile
 
 // MT 16-row fragments per warp: a K or V fragment, once split, feeds MT
-// products.  Two at hd <= 128 (255 registers at hd 128, two blocks per SM);
-// one above (hd 160, 224, 256), where the O accumulator alone takes 80, 112
-// or 128 registers.
+// products.  Two at hd 8; one above (hd 160, 224, 256), where the O
+// accumulator alone takes 80, 112 or 128 registers.
 template <int HD>
 struct Tile {
   static constexpr int MT = HD <= 128 ? 2 : 1, BQ = 16 * MT * NW;
@@ -195,7 +195,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // S = Q K^T: lane (g, t) reads q and k at hd kk + 2t and kk + 2t + 1.
     // Each 32-wide slice of hd is summed on the tensor cores in a fresh
     // fragment and added to S on the FMA units (see P V below); a head dim
-    // that is not a multiple of 32 (80, 112; the demo models' 8) ends in one
+    // that is not a multiple of 32 (the demo models' 8) ends in one
     // narrower slice.
     float sacc[MT][NKT][4] = {};
     const float* qrow = Qs + r0 * QS + 2 * t;
@@ -344,24 +344,36 @@ int launch(const float* q, const float* k, const float* v, float* o, float* lse,
 
 }  // namespace
 
+// csrc/flash_attention_wgmma.cu: the forward at hd 64, 80, 112 and 128
+int seifer_flash_fwd_wgmma(const float* q, const float* k, const float* v, float* o,
+                           float* lse, float* planes, int B, int S, int H, int KH, int hd,
+                           long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                           long long v_sb, long long v_ss, int causal, int window,
+                           float softcap, float scale, cudaStream_t st);
+
+// planes: the wgmma kernel's scratch (4 B KH S_pad hd floats, S_pad = S
+// rounded up to 64) at hd 64 to 128, unused at the other head dims
 extern "C" int seifer_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse, int B, int S, int H,
-    int KH, int hd, long long q_sb, long long q_ss, long long k_sb,
+    const void* q, const void* k, const void* v, void* o, void* lse, void* planes, int B, int S,
+    int H, int KH, int hd, long long q_sb, long long q_ss, long long k_sb,
     long long k_ss, long long v_sb, long long v_ss, int causal, int window,
     float softcap, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v;
   float *of = (float*)o, *lf = (float*)lse;
   switch (hd) {
+    case 64:
+    case 80:
+    case 112:
+    case 128:
+      return seifer_flash_fwd_wgmma(qf, kf, vf, of, lf, (float*)planes, B, S, H, KH, hd, q_sb,
+                                    q_ss, k_sb, k_ss, v_sb, v_ss, causal, window, softcap,
+                                    scale, st);
 #define SEIFER_FLASH_CASE(D)                                                     \
   case D:                                                                        \
     return launch<D>(qf, kf, vf, of, lf, B, S, H, KH, q_sb, q_ss, k_sb, k_ss, v_sb, \
                      v_ss, causal, window, softcap, scale, st);
     SEIFER_FLASH_CASE(8)
-    SEIFER_FLASH_CASE(64)
-    SEIFER_FLASH_CASE(80)
-    SEIFER_FLASH_CASE(112)
-    SEIFER_FLASH_CASE(128)
     SEIFER_FLASH_CASE(160)
     SEIFER_FLASH_CASE(224)
     SEIFER_FLASH_CASE(256)

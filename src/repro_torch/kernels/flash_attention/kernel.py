@@ -1,5 +1,7 @@
 """Wrappers of the CUDA flash-attention kernels: the forward
-(``csrc/flash_attention.cu``) and the backward (``csrc/flash_attention_bwd.cu``).
+(``csrc/flash_attention_wgmma.cu`` at hd in ``WGMMA_HEAD_DIMS``,
+``csrc/flash_attention.cu`` at the others) and the backward
+(``csrc/flash_attention_bwd.cu``).
 
 Each checks what its kernel takes and raises on anything else: float32 CUDA
 tensors, self-attention (``Sq == Skv``), ``hd`` in ``HEAD_DIMS`` (every
@@ -14,7 +16,8 @@ copy.  The backward's o and dO must be contiguous (B, S, H, hd) and its lse
 a contiguous (B, H, S) f32 tensor.  Outputs are new contiguous tensors.
 
 ``flash_attention_cuda`` counts its launches in ``launches`` (and those
-with a sliding window also in ``launches_windowed``); with ``lse=True`` it
+with a sliding window also in ``launches_windowed``, those on the ``wgmma``
+kernel in ``launches_wgmma``); with ``lse=True`` it
 also returns each row's logsumexp, the residual of the backward.  Its
 softmax scale is ``hd**-0.5`` unless the caller gives ``scale``.
 ``flash_attention_bwd_cuda`` counts its launches (one call runs its three
@@ -37,6 +40,12 @@ FWD_HEAD_DIMS = (8, *HEAD_DIMS, 224)
 # the rows of the tiles each streams past them
 BWD_ROWS = {64: 64, 80: 64, 112: 128, 128: 128, 160: 64, 256: 32}
 BWD_TILE = 32
+# the forward's head dims on TF32 wgmma (csrc/flash_attention_wgmma.cu); the
+# C entry routes by hd alike.  That kernel reads K and V^T as TF32 hi and lo
+# planes that its pre-pass writes into scratch of 4 B KH S_pad hd floats,
+# S_pad = S rounded up to PLANE_KEYS.
+WGMMA_HEAD_DIMS = (64, 80, 112, 128)
+PLANE_KEYS = 64
 
 
 def _require_rows(t: torch.Tensor, name: str) -> None:
@@ -95,10 +104,16 @@ def flash_attention_cuda(
     b, s, h, kh, hd = _require_qkv(q, k, v, FWD_HEAD_DIMS)
     o = torch.empty((b, s, h, hd), dtype=torch.float32, device=q.device)
     lse_t = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if lse else None
+    wgmma = hd in WGMMA_HEAD_DIMS
     if b and s:
+        planes = None
+        if wgmma:
+            s_pad = -(-s // PLANE_KEYS) * PLANE_KEYS
+            planes = torch.empty(4 * b * kh * s_pad * hd, dtype=torch.float32, device=q.device)
         err = _build.lib().seifer_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse_t is None else lse_t.data_ptr(),
+            None if planes is None else planes.data_ptr(),
             b, s, h, kh, hd, *_strides(q, k, v),
             int(bool(causal)), int(window), float(softcap),
             float(hd**-0.5 if scale is None else scale),
@@ -107,11 +122,14 @@ def flash_attention_cuda(
         flash_attention_cuda.launches += 1
         if window > 0:
             flash_attention_cuda.launches_windowed += 1
+        if wgmma:
+            flash_attention_cuda.launches_wgmma += 1
     return (o, lse_t) if lse else o
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_windowed = 0
+flash_attention_cuda.launches_wgmma = 0
 
 
 def flash_attention_bwd_cuda(

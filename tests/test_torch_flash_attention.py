@@ -74,3 +74,17 @@ def test_mixed_devices_raise():
     q, k, v = (torch.zeros(1, 8, 2, 64) for _ in range(3))
     with pytest.raises(ValueError, match="cpu or all on cuda"):
         flash_attention(q, k.to("meta"), v)
+
+
+def test_wgmma_launch_counter_in_counts_and_reset():
+    """The forward's launches on the wgmma kernel (hd 64 to 128) are their
+    own key of ``launch_counts()``, zeroed by ``reset_launch_counts()``."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention.kernel import WGMMA_HEAD_DIMS, flash_attention_cuda
+
+    assert WGMMA_HEAD_DIMS == (64, 80, 112, 128)
+    flash_attention_cuda.launches_wgmma = 3
+    assert launch_counts()["flash_attention_cuda_wgmma"] == 3
+    reset_launch_counts()
+    counts = launch_counts()
+    assert counts["flash_attention_cuda_wgmma"] == 0 and counts["flash_attention_cuda"] == 0

@@ -689,6 +689,66 @@ def test_flash_every_zoo_head_dim(cuda, hd, s, g, causal, window, softcap):
     assert (out - ref).abs().max().item() <= 2e-5
 
 
+@pytest.mark.parametrize("hd", (8, 64, 80, 112, 128, 160, 224, 256))
+def test_flash_wgmma_counts_its_head_dims(cuda, hd):
+    """hd 64, 80, 112 and 128 go to the wgmma kernel, each launch counted in
+    ``flash_attention_cuda_wgmma`` as in ``flash_attention_cuda``; 8, 160,
+    224 and 256 stay on the mma.sync kernel and count none there.  Both
+    within the f32 pin."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    q, k, v = _flash_case(cuda, 2, 200, 4, 2, hd, 32)
+    reset_launch_counts()
+    out = flash_attention_cuda(q, k, v, causal=True, window=0, softcap=50.0)
+    counts = launch_counts()
+    assert counts["flash_attention_cuda"] == 1
+    assert counts["flash_attention_cuda_wgmma"] == (1 if hd in (64, 80, 112, 128) else 0)
+    ref = attention_ref(q, k, v, causal=True, softcap=50.0)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 2e-5
+
+
+def test_flash_back_to_back_shapes_and_strides(cuda):
+    """Calls at different B, S, hd, windows and row strides one after the
+    other with no synchronise between them, each held afterwards to its
+    plain version at the f32 pin: a tensor map or plane scratch left from
+    an earlier call would show."""
+    calls = []
+    for i, (b, s, hd, strided) in enumerate([(2, 300, 80, True), (1, 1999, 64, False),
+                                             (3, 129, 128, True), (2, 300, 80, False),
+                                             (1, 64, 112, True), (2, 1000, 80, True)]):
+        h, kh = 4, 2
+        if strided:
+            qkv = _randn((b, s, (h + 2 * kh) * hd), 90 + i, cuda)
+            q = qkv[..., : h * hd].reshape(b, s, h, hd)
+            k = qkv[..., h * hd:(h + kh) * hd].reshape(b, s, kh, hd)
+            v = qkv[..., (h + kh) * hd:].reshape(b, s, kh, hd)
+        else:
+            q, k, v = _flash_case(cuda, b, s, h, kh, hd, 90 + i)
+        window = 100 * (i % 2)
+        calls.append((q, k, v, window,
+                       flash_attention_cuda(q, k, v, causal=True, window=window, softcap=50.0)))
+    for q, k, v, window, out in calls:
+        ref = attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                            window=window, softcap=50.0)
+        assert (out - ref).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("hd", (64, 80, 112, 128))
+@pytest.mark.parametrize("s", (1999, 8191))
+def test_flash_wgmma_lse_at_ragged_s(cuda, hd, s):
+    """The wgmma kernel's o and logsumexp (``lse=True``) against
+    ``attention_ref_lse`` at an S off every tile, each within 2e-5 of
+    max|plain|."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref_lse
+
+    q, k, v = _flash_case(cuda, 1, s, 2, 1, hd, 95)
+    o, lse = flash_attention_cuda(q, k, v, lse=True, causal=True, softcap=50.0)
+    o_ref, lse_ref = attention_ref_lse(q, k, v, causal=True, softcap=50.0)
+    for a, w in ((o, o_ref), (lse, lse_ref)):
+        assert ((a - w).abs().max() / w.abs().max()).item() <= 2e-5
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("hd", [80, 128])
 def test_flash_op_takes_half_inputs(cuda, dtype, hd):
